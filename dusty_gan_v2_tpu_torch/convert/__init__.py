@@ -1,0 +1,5 @@
+"""Weight conversion into the PyTorch port."""
+
+from .jax_variables import flatten_variables, jax_variables_to_state_dict, load_jax_variables
+
+__all__ = ["flatten_variables", "jax_variables_to_state_dict", "load_jax_variables"]
