@@ -3,9 +3,12 @@
 Every source under ``csrc/`` is compiled by its own ``nvcc`` process into its own
 shared library with a plain C interface; all compilers start together and the build
 waits for every one. Libraries go to ``dusty_gan_v2_tpu_torch/_build/`` (git-ignored)
-under a name that hashes the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused. Nothing is built at import: the first kernel launch (or an
-explicit ``build_all()``) triggers the build.
+under a name that hashes the source and its flags, so an edited source is rebuilt and
+an unchanged one is reused. Each source has its own flags (NVCC_FLAGS): fps.cu must not
+contract a*b+c to FMA or its indices drift from the plain scan's, emd.cu pins the
+rounding of its distance with intrinsics and lets the compiler fuse the rest. Nothing
+is built at import: the first kernel launch (or an explicit ``build_all()``) triggers
+the build.
 """
 
 from __future__ import annotations
@@ -18,18 +21,19 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "check"]
+__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build_all", "library", "check"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_bias_act", "fps")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_OUTPUT = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = {
+    "fused_bias_act": (*_TARGET, "--fmad=false", *_OUTPUT),
+    "fps": (*_TARGET, "--fmad=false", *_OUTPUT),
+    "emd": (*_TARGET, *_OUTPUT),
+}
+SOURCES = tuple(NVCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -41,7 +45,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -58,7 +62,7 @@ def build_all() -> dict:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
