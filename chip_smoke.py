@@ -9,7 +9,10 @@
    shapes the main paths give it, with its time, the plain version's time and the
    least time the card could take (bound): the fused bias-act at its 9 sites, FPS at
    8 x 32768 -> 2048, the fused EMD at 256 pairs of 2048 x 2048 points (uniform clouds
-   and clouds with 30% of their points on the origin).
+   and clouds with 30% of their points on the origin), the fused act -> resample chain
+   forward (with and without activation) and backward at the discriminator's four
+   trunk shapes at B=8 in f32 and bf16, plus up-2 and down-2 plans (at the generator's
+   site and at ragged sizes), dense random operators and the transposed-operator use.
 4. slice: the full-width dusty_v2 generator (full_gen_cfg(), seeded random weights)
    samples B=8 at psi 0.7 with fixed logistic noise, and the clouds are
    FPS-downsampled to 2048 points, through the port's entry points; the launch
@@ -23,6 +26,19 @@
    PointNet. The counters show 48 EMD kernel launches and no plain-route call; the
    EMD and CD scores of a 16-cloud subset match those from the plain versions' matrices.
 6. rates: samples/s at B=8 and B=128, fp32 and the bfloat16 compute policy.
+7. critic: through build_discriminator and training/trainer.py only. The full-width
+   dusty_v2 discriminator (full_disc_cfg(), seeded weights, non-zero biases) scores the
+   slice's B=8 fakes and stand-in reals from a second generator, and takes the three
+   D-side loss phases with their gradients (g_phase_loss, d_phase_loss, r1_penalty with
+   its double backward). The launch counters show the chain kernels on the unfused
+   route (8 forward launches per D forward; 4 backward + 4 forward per backward); the
+   card's fp32 logits and losses match the same D on the CPU within 1e-4 and all three
+   kinds of gradient within 1e-2 of their largest magnitude (a float32 evaluation of
+   them moves by ~1e-3 when its weights move by one ulp, which the phase measures); the
+   composite route agrees; the bf16 policy stays near fp32.
+8. critic rates: ms and imgs/s of the D forward, d_phase_loss forward + backward and
+   r1_penalty forward + double backward at B=32 fp32 and B=128 bf16, and the four-block
+   trunk with the chain kernels against the same trunk from the unfused pair.
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
@@ -50,9 +66,17 @@ from dusty_gan_v2_tpu_torch.metrics import (
     build_pointnet, earth_mover_distance, emd_cost, emd_cuda, fps_cuda, furthest_point_sampling,
 )
 from dusty_gan_v2_tpu_torch.metrics.cov_mmd_1nna import _compute_cov_mmd, _compute_nna, _pairwise_distance
-from dusty_gan_v2_tpu_torch.models import build_generator
-from dusty_gan_v2_tpu_torch.ops import fused_bias_act, fused_bias_act_cuda, fused_leaky_relu, sample_logistic
-from dusty_gan_v2_tpu_torch.sampling import full_gen_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample
+from dusty_gan_v2_tpu_torch.models import build_discriminator, build_generator
+from dusty_gan_v2_tpu_torch.ops import (
+    fused_act_resample, fused_act_resample_bwd_plain, fused_act_resample_plain, fused_bias_act, fused_bias_act_cuda,
+    fused_chain_bwd_cuda, fused_chain_fwd_cuda, fused_leaky_relu, fused_resample_plain, make_resample, resample,
+    sample_logistic,
+)
+from dusty_gan_v2_tpu_torch.ops.fused_chain import ChainOperators, chain_operators
+from dusty_gan_v2_tpu_torch.sampling import (
+    full_disc_cfg, full_gen_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample,
+)
+from dusty_gan_v2_tpu_torch.training import d_phase_loss, g_phase_loss, r1_penalty
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and non-tensor-core f32 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -65,6 +89,11 @@ SFU_OPS_PER_S = F32_FLOPS_PER_S / 2 / 128 * 16
 # site (bias_act1), blocks 1-4 two (bias_act1, bias_act2)
 K1_SITES = [((512, 4, 32), 1), ((256, 8, 64), 2), ((128, 16, 128), 2), ((64, 32, 256), 2), ((32, 64, 512), 2)]
 B_SLICE, N_POINTS, K_POINTS = 8, 64 * 512, 2048
+# per-sample (C, H, W) of the act -> blur sites of full_disc_cfg(): the input of each
+# residual block, where the main path runs the chain with the activation and the skip
+# without
+CHAIN_SITES = [(32, 64, 512), (64, 32, 256), (128, 16, 128), (256, 8, 64)]
+BLUR_WINDOW = (1, 3, 3, 1)
 # evaluation: clouds per set (the protocol's depth, 2048, cut to 64), pairs per EMD
 # launch (test_gan.py's --pairwise_batch), pairs per call of the plain EMD (its
 # (pairs, 2048, 2048) f32 temporaries are 0.5 GB each at 32)
@@ -155,6 +184,12 @@ def kernel_ms(fn, reps):
     """Device ms per call from the profiler; CUDA-event ms where it saw no device time."""
     ms, _, _ = profile_ms(fn, reps)
     return ms if ms is not None else cuda_ms(fn, reps)
+
+
+def kernel_ms3(fn, reps):
+    """The median of three kernel_ms windows: a window that lost every record of one
+    kernel reads low and looks complete, and the median drops it."""
+    return statistics.median(kernel_ms(fn, reps) for _ in range(3))
 
 
 def launch_ms(fn, reps):
@@ -351,6 +386,169 @@ def check_emd(dev, gen):
     }, {"max_rel_err": rows, "launch_ms": ms_by_kind, "clocks_after": clocks}
 
 
+def chain_tol(ref, dtype, inter=None, second=None):
+    """Elementwise bar of a chain kernel against its plain version. f32: 1e-5 absolute
+    plus 1e-5 relative (two sum orders of at most 512 terms). bf16: both round at the same
+    places but sum in another order, which can flip a rounding: 2 ulp of the output,
+    plus what one ulp of the rounded intermediate `inter` gives after the second product
+    (`second`, with the operator's magnitudes)."""
+    if dtype == torch.float32:
+        return 1e-5 + 1e-5 * ref.float().abs()
+    return 2 * bf16_ulp(ref) + second(bf16_ulp(inter))
+
+
+def chain_bound(n_planes, left, right, left_first, esize):
+    """(bound ms, "bytes" or "operations", dense-product ms) of one chain launch
+    out = left (ho, h) @ plane (h, w) @ right (w, wo). Bytes: every plane read and
+    written once (the backward, which runs `left_first`, also reads the saved input, of
+    the output's shape) and the operators read once. Operations: the multiply-adds the
+    two products need on these operators, which are sparse (a zero needs no operation);
+    the dense count is what a kernel blind to the zeros does."""
+    (ho, h), (w, wo) = left.shape, right.shape
+    nbytes = esize * (n_planes * (h * w + (2 if left_first else 1) * ho * wo) + left.numel() + right.numel())
+    nnz_l, nnz_r = int((left != 0).sum()), int((right != 0).sum())
+    if left_first:
+        need, dense = nnz_l * w + ho * nnz_r, ho * h * w + ho * w * wo
+    else:
+        need, dense = h * nnz_r + nnz_l * wo, h * w * wo + ho * h * wo
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * n_planes * need / F32_FLOPS_PER_S
+    return (1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            1e3 * 2 * n_planes * dense / F32_FLOPS_PER_S)
+
+
+def check_chain_case(x, b, g, plan, dtype, tag, o=None):
+    """One resampling on one input: the forward kernel with and without the activation,
+    the backward kernel (dx, and d(bias) through the autograd Function) and the forward
+    kernel with the transposed operators, each against its plain version. The operators
+    are the plan's, or `o` (then without the Function, which takes a plan). Returns the
+    largest absolute errors."""
+    B, C, H, W = x.shape
+    o = chain_operators(plan, H, W, x.device, dtype) if o is None else o
+    up = lambda u: torch.matmul(o.hm.abs().float(), u)  # noqa: E731
+    down = lambda u: torch.matmul(u, o.wm.abs().float())  # noqa: E731
+    errs = {}
+
+    def hold(name, got, ref, tol):
+        err = (got.float() - ref.float()).abs()
+        assert bool(torch.isfinite(got.float()).all()), f"{tag} {name}: non-finite"
+        assert bool((err <= tol).all()), f"{tag} {name}: max abs err {float(err.max())}, over the bar at {int((err > tol).sum())} places"
+        errs[name] = float(err.max())
+
+    y = fused_leaky_relu(x, b)
+    ref = fused_act_resample_plain(x, b, o.wmT, o.hm)
+    hold("fwd_act", fused_chain_fwd_cuda(x, b, o.wmT, o.hm), ref, chain_tol(ref, dtype, torch.matmul(y, o.wmT), up))
+    ref = fused_resample_plain(x, o.wmT, o.hm)
+    hold("fwd", fused_chain_fwd_cuda(x, None, o.wmT, o.hm), ref, chain_tol(ref, dtype, torch.matmul(x, o.wmT), up))
+    ref = fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT)
+    t = torch.matmul(o.hmT, g)
+    hold("bwd", fused_chain_bwd_cuda(g, x, b, o.wm, o.hmT), ref, chain_tol(ref, dtype, t, lambda u: math.sqrt(2.0) * down(u)))
+    # the resample's adjoint is the forward kernel with the transposed operators
+    ref = fused_resample_plain(g, o.wm, o.hmT)
+    hold("fwd_transposed", fused_chain_fwd_cuda(g, None, o.wm, o.hmT), ref,
+         chain_tol(ref, dtype, torch.matmul(g, o.wm), lambda u: torch.matmul(o.hmT.abs().float(), u)))
+    if plan is None:
+        return errs
+    # d(bias) through the Function: a float32 sum of the kernel's dx
+    xk, bk = x.clone().requires_grad_(), b.clone().requires_grad_()
+    (fused_act_resample(xk, bk, plan).float() * g.float()).sum().backward()
+    db_ref = fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT).float().sum(dim=(0, 2, 3))
+    db_err = float((bk.grad - db_ref).abs().max() / db_ref.abs().max())
+    assert db_err <= (1e-4 if dtype == torch.float32 else 2.0**-7), f"{tag} db: {db_err}"
+    return errs
+
+
+def check_fused_chain(dev, gen):
+    """K4 / K5 against their plain versions at the discriminator's trunk shapes (B=8), and
+    their device times beside the plain versions', the unfused pair on the card (the
+    bias-act kernel plus two matmuls) and the bound."""
+    blur = make_resample(window=BLUR_WINDOW, ring=True)
+    rows, worst = [], {"fwd": 0.0, "bwd": 0.0}
+    total = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}
+    for C, H, W in CHAIN_SITES:
+        shape = (B_SLICE, C, H, W)
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        b = torch.randn(C, device=dev, generator=gen)
+        g32 = torch.randn(shape, device=dev, generator=gen)
+        row = {"shape": list(shape)}
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x, g = x32.to(dtype), g32.to(dtype)
+            errs = check_chain_case(x, b, g, blur, dtype, f"chain {shape} {name}")
+            o = chain_operators(blur, H, W, dev, dtype)
+            if dtype == torch.float32:
+                worst["fwd"] = max(worst["fwd"], errs["fwd_act"], errs["fwd"], errs["fwd_transposed"])
+                worst["bwd"] = max(worst["bwd"], errs["bwd"])
+            n, es = B_SLICE * C, x.element_size()
+            fb, fby, fdense = chain_bound(n, o.hm, o.wmT, False, es)
+            bb, bby, bdense = chain_bound(n, o.hmT, o.wm, True, es)
+            times = {
+                "fwd_act_ms": kernel_ms3(lambda: fused_chain_fwd_cuda(x, b, o.wmT, o.hm), reps=10),
+                "fwd_ms": kernel_ms3(lambda: fused_chain_fwd_cuda(x, None, o.wmT, o.hm), reps=10),
+                "bwd_ms": kernel_ms3(lambda: fused_chain_bwd_cuda(g, x, b, o.wm, o.hmT), reps=10),
+                "fwd_act_plain_ms": kernel_ms3(lambda: fused_act_resample_plain(x, b, o.wmT, o.hm), reps=10),
+                "fwd_plain_ms": kernel_ms3(lambda: fused_resample_plain(x, o.wmT, o.hm), reps=10),
+                "bwd_plain_ms": kernel_ms3(lambda: fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT), reps=10),
+                # what the card would run unfused: the bias-act kernel, then two matmuls
+                "fwd_act_pair_ms": kernel_ms3(lambda: resample(fused_bias_act_cuda(x, b), blur), reps=10),
+                "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_dense_ops_ms": fdense,
+                "bwd_bound_ms": bb, "bwd_bound_by": bby, "bwd_dense_ops_ms": bdense,
+            }
+            row[name] = {"max_abs_err": errs, **times}
+            if dtype == torch.float32:  # one D forward: the act chain and the bare one per site
+                total["fwd_ms"] += times["fwd_act_ms"] + times["fwd_ms"]
+                total["fwd_plain_ms"] += times["fwd_act_plain_ms"] + times["fwd_plain_ms"]
+                total["fwd_bound_ms"] += 2 * fb
+                total["bwd_ms"] += times["bwd_ms"]
+                total["bwd_plain_ms"] += times["bwd_plain_ms"]
+                total["bwd_bound_ms"] += bb
+            log("kernels", f"fused_chain {shape} {name}: fwd/bwd match; device ms fwd+act {times['fwd_act_ms']:.4f} "
+                f"(plain {times['fwd_act_plain_ms']:.4f}, K1 + 2 matmuls {times['fwd_act_pair_ms']:.4f}), fwd "
+                f"{times['fwd_ms']:.4f} (plain {times['fwd_plain_ms']:.4f}), bound {fb:.4f} by {fby}, dense products "
+                f"{fdense:.4f}; bwd {times['bwd_ms']:.4f} (plain {times['bwd_plain_ms']:.4f}), bound {bb:.4f} by "
+                f"{bby}, dense products {bdense:.4f}; max abs err {errs}")
+        rows.append(row)
+    # rectangular operators: the generator's 2x up site and a 2x down; then ragged sizes
+    # (no multiple of a tile in any dimension, an odd plane count); f32 and bf16
+    for plan_kw, shape in ((dict(up=2), (B_SLICE, 64, 32, 256)), (dict(down=2), (B_SLICE, 32, 64, 512)),
+                           (dict(), (3, 5, 6, 12)), (dict(up=2), (2, 3, 23, 70)), (dict(down=2), (1, 7, 46, 140))):
+        plan = make_resample(window=BLUR_WINDOW, ring=True, **plan_kw)
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        b = torch.randn(shape[1], device=dev, generator=gen)
+        oh, ow = plan.out_shape(*shape[2:])
+        g32 = torch.randn((*shape[:2], oh, ow), device=dev, generator=gen)
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            errs = check_chain_case(x32.to(dtype), b, g32.to(dtype), plan, dtype, f"chain {plan_kw} {shape} {name}")
+            if dtype == torch.float32:
+                worst["fwd"] = max(worst["fwd"], errs["fwd_act"], errs["fwd"], errs["fwd_transposed"])
+                worst["bwd"] = max(worst["bwd"], errs["bwd"])
+            log("kernels", f"fused_chain {plan_kw} {shape} -> {(oh, ow)} {name}: fwd/bwd match, max abs err {errs}")
+    # the operators are general dense arguments: random ones, (40, 100) planes -> (24, 72)
+    hm = torch.randn(24, 40, device=dev, generator=gen) / math.sqrt(40)
+    wmT = torch.randn(100, 72, device=dev, generator=gen) / math.sqrt(100)
+    x32, b = torch.randn(2, 3, 40, 100, device=dev, generator=gen), torch.randn(3, device=dev, generator=gen)
+    g32 = torch.randn(2, 3, 24, 72, device=dev, generator=gen)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        hd, wd = hm.to(dtype), wmT.to(dtype)
+        o = ChainOperators(hd, wd, hd.t().contiguous(), wd.t().contiguous())
+        errs = check_chain_case(x32.to(dtype), b, g32.to(dtype), None, dtype, f"chain dense operators {name}", o)
+        if dtype == torch.float32:
+            worst["fwd"] = max(worst["fwd"], errs["fwd_act"], errs["fwd"], errs["fwd_transposed"])
+            worst["bwd"] = max(worst["bwd"], errs["bwd"])
+        log("kernels", f"fused_chain dense random operators (2, 3, 40, 100) -> (24, 72) {name}: fwd/bwd match, max abs err {errs}")
+    torch.cuda.synchronize()
+    common = {"route": "cuda", "source": "dusty_gan_v2_tpu_torch/csrc/fused_chain.cu", "launches": None,
+              "bound_by": "bytes", "library_ms": None}
+    k4 = {"name": "fused_chain_fwd", "replaces": "dusty_gan_v2_tpu/ops/fused_chain.py:51", "max_abs_err": worst["fwd"],
+          "ms": total["fwd_ms"], "plain_ms": total["fwd_plain_ms"], "bound_ms": total["fwd_bound_ms"], **common}
+    k5 = {"name": "fused_chain_bwd", "replaces": "dusty_gan_v2_tpu/ops/fused_chain.py:104", "max_abs_err": worst["bwd"],
+          "ms": total["bwd_ms"], "plain_ms": total["bwd_plain_ms"], "bound_ms": total["bwd_bound_ms"], **common}
+    for row in rows:  # the totals' bound is by bytes only if every site's is
+        assert row["f32"]["fwd_bound_by"] == row["f32"]["bwd_bound_by"] == "bytes", row
+    log("kernels", f"fused_chain per D forward at B={B_SLICE} f32 (8 launches): {k4['ms']:.4f} ms (plain {k4['plain_ms']:.4f}, "
+        f"bound {k4['bound_ms']:.4f}); per backward (4 launches of the backward kernel): {k5['ms']:.4f} ms "
+        f"(plain {k5['plain_ms']:.4f}, bound {k5['bound_ms']:.4f})")
+    return k4, k5, rows
+
+
 def phase_slice(dev):
     cpu_gen = torch.Generator().manual_seed(0)
     G_cpu = build_generator(full_gen_cfg(), device="cpu", seed=0)
@@ -390,7 +588,7 @@ def phase_slice(dev):
     errs = {k: float((o[k].cpu() - o_cpu[k]).abs().max()) for k in ("image_orig", "raydrop_logit")}
     log("slice", f"card vs CPU fp32 max abs err {errs}; ray-drop share {drop_share:.3f}")
     assert all(e <= 1e-4 for e in errs.values()), errs
-    return G_cpu, launches, {"first_call_s": first_s, "cpu_max_abs_err": errs, "raydrop_share": drop_share}
+    return G_cpu, launches, {"first_call_s": first_s, "cpu_max_abs_err": errs, "raydrop_share": drop_share}, o["image"]
 
 def plain_matrices(p1, p2):
     """(B1, B2) CD and EMD matrices from plain formulations on the card: CD from the
@@ -535,6 +733,253 @@ def phase_rates(G_cpu, dev):
     return rates
 
 
+CHAIN_COUNTERS = {"fused_bias_act": fused_bias_act_cuda, "fused_chain_fwd": fused_chain_fwd_cuda,
+                  "fused_chain_bwd": fused_chain_bwd_cuda}
+
+
+def read_and_reset(counters):
+    out = {name: fn.launches for name, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return out
+
+
+def grads_of(D):
+    """{name: gradient} of D's parameters (zeros where a phase leaves one untouched)."""
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()) for k, p in D.named_parameters()}
+
+
+def critic_phases(D, x_real, x_fake):
+    """The three loss phases on D with their gradients, as the training step takes them."""
+    xf = x_fake.detach().clone().requires_grad_()
+    g_loss = g_phase_loss(D, xf, "nsgan")
+    (g_grad,) = torch.autograd.grad(g_loss, xf)
+    D.zero_grad(set_to_none=True)
+    d_loss = d_phase_loss(D, x_real, x_fake, "nsgan")
+    d_loss.backward()
+    d_grads = grads_of(D)
+    D.zero_grad(set_to_none=True)
+    r1 = r1_penalty(D, x_real)
+    r1.backward()
+    r1_grads = grads_of(D)
+    D.zero_grad(set_to_none=True)
+    return {"g_loss": float(g_loss.detach()), "d_loss": float(d_loss.detach()), "r1": float(r1.detach())}, g_grad.detach(), d_grads, r1_grads
+
+
+def rel_max_err(got, ref):
+    """max |got - ref| over the reference's largest magnitude, over a dict of tensors."""
+    scale = max(float(r.abs().max()) for r in ref.values())
+    return max(float((got[k].cpu() - ref[k].cpu()).abs().max()) for k in ref) / scale
+
+
+def phase_critic(x_fake, dev):
+    D_cpu = build_discriminator(full_disc_cfg(), device="cpu", seed=0)
+    bias_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # non-zero biases, as after training, so the activations' bias paths act
+        for name, prm in D_cpu.named_parameters():
+            if name.endswith("bias"):
+                prm.normal_(0.0, 0.3, generator=bias_gen)
+    D = copy.deepcopy(D_cpu).to(dev)
+    # stand-in reals: a second full-width generator (KITTI frames are not part of the repository)
+    G_ref = build_generator(full_gen_cfg(), device=dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    angle = load_angle()
+    z = torch.randn(B_SLICE, 512, device=dev, generator=gen)
+    x_real = sample(G_ref, z, angle, 1.0, sample_logistic(gen, (B_SLICE, 1, 64, 512), device=dev))["image"]
+    del G_ref
+    assert tuple(x_fake.shape) == tuple(x_real.shape) == (B_SLICE, 1, 64, 512)
+
+    # launch counters of one forward on each route and of one backward
+    read_and_reset(CHAIN_COUNTERS)
+    xf = x_fake.detach().clone().requires_grad_()
+    y_chain = D(xf, blur_fuse=False)
+    n_fwd = read_and_reset(CHAIN_COUNTERS)
+    y_chain.sum().backward()
+    n_bwd = read_and_reset(CHAIN_COUNTERS)
+    D.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        y_comp = D(x_fake, blur_fuse=True)
+    n_comp = read_and_reset(CHAIN_COUNTERS)
+    log("critic", f"launches: forward blur_fuse=False {n_fwd}, its backward {n_bwd}, forward blur_fuse=True {n_comp}")
+    assert n_fwd == {"fused_bias_act": 7, "fused_chain_fwd": 8, "fused_chain_bwd": 0}, n_fwd
+    assert n_bwd == {"fused_bias_act": 0, "fused_chain_fwd": 4, "fused_chain_bwd": 4}, n_bwd
+    assert n_comp == {"fused_bias_act": 11, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, n_comp
+    assert tuple(y_chain.shape) == tuple(y_comp.shape) == (B_SLICE, 1)
+    assert bool(torch.isfinite(y_chain).all()) and bool(torch.isfinite(y_comp).all())
+    routes_err = float((y_chain.detach() - y_comp).abs().max())
+
+    # the main path of this slice: the three loss phases with their gradients
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    values, g_grad, d_grads, r1_grads = critic_phases(D, x_real, x_fake)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_and_reset(CHAIN_COUNTERS)
+    log("critic", f"g_phase + d_phase + r1 with gradients, B={B_SLICE}: {first_s:.3f} s (first call); launches {launches}; {values}")
+    # g: 8 + 4 forward-kernel and 4 backward-kernel launches; d: two forwards and their
+    # backwards; r1: forward, backward with a graph (12 + 4), and the double backward, which
+    # runs the forward kernel for every chain of the first backward (8) and, through the
+    # minibatch stddev's dependence on the trunk, the trunk's own backward (4 + 4)
+    assert launches == {"fused_bias_act": 28, "fused_chain_fwd": 60, "fused_chain_bwd": 20}, launches
+    assert all(math.isfinite(v) for v in values.values()) and values["r1"] > 0, values
+
+    # the same D on the CPU, fp32
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_cpu = {fuse: D_cpu(x_fake.cpu(), blur_fuse=fuse) for fuse in (False, True)}
+    values_cpu, g_grad_cpu, d_grads_cpu, r1_grads_cpu = critic_phases(D_cpu, x_real.cpu(), x_fake.cpu())
+    # how far one ulp moves the same float32 computation: the CPU reference once more with
+    # every weight stepped to the next float. A leaky-ReLU mask flips where a pre-activation
+    # sits within rounding of zero, and one flipped element among the 8 x 64 x 512 a bias
+    # gradient sums moves it by ~1e-3 of its size, so no two float32 evaluations of these
+    # gradients agree to 1e-4; values (logits, losses) do.
+    D_ulp = copy.deepcopy(D_cpu)
+    with torch.no_grad():
+        for prm in D_ulp.parameters():
+            prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    _, g_grad_ulp, d_grads_ulp, r1_grads_ulp = critic_phases(D_ulp, x_real.cpu(), x_fake.cpu())
+    cpu_s = time.perf_counter() - t0
+    one_ulp = {
+        "g_phase_input_grad": rel_max_err({"x": g_grad_ulp}, {"x": g_grad_cpu}),
+        "d_phase_param_grads": rel_max_err(d_grads_ulp, d_grads_cpu),
+        "r1_param_grads": rel_max_err(r1_grads_ulp, r1_grads_cpu),
+    }
+    errs = {
+        "logits_chain": float((y_chain.detach().cpu() - y_cpu[False]).abs().max()),
+        "logits_composite": float((y_comp.cpu() - y_cpu[True]).abs().max()),
+        "routes": routes_err,
+        "losses": max(abs(values[k] - values_cpu[k]) / max(abs(values_cpu[k]), 1e-12) for k in values),
+    }
+    grad_errs = {
+        "g_phase_input_grad": rel_max_err({"x": g_grad}, {"x": g_grad_cpu}),
+        "d_phase_param_grads": rel_max_err(d_grads, d_grads_cpu),
+        "r1_param_grads": rel_max_err(r1_grads, r1_grads_cpu),
+    }
+    log("critic", f"card vs CPU fp32 (CPU references {cpu_s:.1f} s): logits max abs err and losses relative {errs} "
+        f"(bar 1e-4); gradients' max abs err over the reference's largest magnitude {grad_errs} (bar 1e-2); the CPU "
+        f"against itself with every weight one ulp up: {one_ulp}")
+    assert all(e <= 1e-4 for e in errs.values()), errs
+    assert all(e <= 1e-2 for e in grad_errs.values()), grad_errs
+    assert float(g_grad_cpu.abs().max()) > 0 and all(float(g.abs().max()) > 0 for g in (d_grads_cpu["res0.conv1.conv.weight"], r1_grads_cpu["res0.conv1.conv.weight"]))
+
+    # the bfloat16 policy: trunk in bfloat16, epilogue float32
+    cfg = full_disc_cfg()
+    cfg["compute_dtype"] = "bfloat16"
+    D16 = build_discriminator(cfg, device=dev)
+    D16.load_state_dict(D.state_dict())
+    with torch.no_grad():
+        y16 = {fuse: D16(x_fake, blur_fuse=fuse) for fuse in (False, True)}
+    values16, g16, d16, r16 = critic_phases(D16, x_real, x_fake)
+    bf16_l2 = {f"logits_{'composite' if fuse else 'chain'}": float((y - y_chain.detach()).norm() / y_chain.detach().norm())
+               for fuse, y in y16.items()}
+    finite16 = all(bool(torch.isfinite(t).all()) for t in (g16, *d16.values(), *r16.values(), *y16.values()))
+    log("critic", f"bf16 policy: relative L2 of the logits to fp32 {bf16_l2}; losses {values16}; gradients finite: {finite16}")
+    assert finite16 and all(math.isfinite(v) for v in values16.values())
+    # ~30 bfloat16 roundings along the trunk, then a readout that cancels: a few percent of
+    # the logits' norm (the losses agree to 0.2%)
+    assert all(e <= 0.15 for e in bf16_l2.values()), bf16_l2
+    return D_cpu, launches, {
+        "first_call_s": first_s, "cpu_reference_s": cpu_s, "launches_forward_chain": n_fwd, "launches_backward": n_bwd,
+        "launches_forward_composite": n_comp, "launches_three_phases": launches, "losses": values,
+        "cpu_err": errs, "cpu_grad_err": grad_errs, "cpu_one_ulp_grad_shift": one_ulp, "bf16_rel_l2": bf16_l2, "bf16_losses": values16,
+    }
+
+
+def trunk(D, h, kernels_route):
+    """The four residual blocks on h (B, 32, 64, 512): with the chain kernels (the block's
+    own unfused route), or composed from the unfused pair the kernels replace (the
+    bias-act kernel, then the two matmuls of `resample`)."""
+    for j in range(D.n_down):
+        blk = getattr(D, f"res{j}")
+        if kernels_route:
+            h = blk(h, blur_fuse=False)
+            continue
+        m = blk.conv2(resample(blk.bias_act1(blk.conv1(h)), blk.blur))
+        h = (blk.bias_act2(m) + blk.skip(resample(h, blk.blur))) / math.sqrt(2.0)
+    return h
+
+
+def phase_critic_rates(D_cpu, G_cpu, dev):
+    angle = load_angle()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    G = copy.deepcopy(G_cpu).to(dev)
+    rates = []
+    for compute_dtype, B in (("float32", 32), ("bfloat16", 128)):
+        cfg = full_disc_cfg()
+        cfg["compute_dtype"] = compute_dtype
+        D = build_discriminator(cfg, device=dev)
+        D.load_state_dict(D_cpu.state_dict())
+        imgs = [
+            sample(G, torch.randn(B, 512, device=dev, generator=gen), angle, 1.0,
+                   sample_logistic(gen, (B, 1, 64, 512), device=dev))["image"] for _ in range(2)
+        ]
+
+        def forward():
+            with torch.no_grad():
+                return D(imgs[0], blur_fuse=False)
+
+        def forward_composite():
+            with torch.no_grad():
+                return D(imgs[0], blur_fuse=True)
+
+        def d_step():
+            D.zero_grad(set_to_none=True)
+            d_phase_loss(D, imgs[0], imgs[1], "nsgan").backward()
+
+        def r1_step():
+            D.zero_grad(set_to_none=True)
+            r1_penalty(D, imgs[0]).backward()
+
+        rec = {"compute_dtype": compute_dtype, "batch": B}
+        for name, fn, reps in (("forward", forward, 5), ("forward_composite", forward_composite, 5),
+                               ("d_phase", d_step, 2), ("r1", r1_step, 2)):
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(fn, reps=reps, repeats=3)
+            rec[f"{name}_ms"], rec[f"{name}_imgs_per_s"] = ms, 1e3 * B / ms
+            rec[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        dev_ms, _, by_name = profile_ms(d_step, reps=2)
+        chain_ms = sum(t for n, t in by_name.items() if "chain_fwd" in n or "chain_bwd" in n)
+        rec.update(d_phase_device_ms=dev_ms, d_phase_chain_kernels_ms=chain_ms,
+                   d_phase_top_device_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+        rates.append(rec)
+        log("critic-rates", f"{compute_dtype} B={B}: D forward {rec['forward_ms']:.3f} ms = {rec['forward_imgs_per_s']:.0f} "
+            f"imgs/s (composite route {rec['forward_composite_ms']:.3f} ms); d_phase fwd+bwd {rec['d_phase_ms']:.3f} ms = "
+            f"{rec['d_phase_imgs_per_s']:.0f} imgs/s, peak {rec['d_phase_peak_gib']:.2f} GiB; r1 fwd+double bwd "
+            f"{rec['r1_ms']:.3f} ms = {rec['r1_imgs_per_s']:.0f} imgs/s, peak {rec['r1_peak_gib']:.2f} GiB; d_phase device "
+            f"{dev_ms} ms of which chain kernels {chain_ms:.3f}")
+        log("critic-rates", "  top device ms per d_phase step: " + "; ".join(f"{n[:60]} {t:.3f}" for n, t in rec["d_phase_top_device_ms"]))
+        if compute_dtype == "float32":  # the trunk with the kernels against the unfused pair, in turns
+            h = torch.randn(B_SLICE, 32, 64, 512, device=dev, generator=gen).requires_grad_()
+
+            def trunk_step(kernels_route):
+                D.zero_grad(set_to_none=True)
+                h.grad = None
+                trunk(D, h, kernels_route).square().sum().backward()
+
+            with torch.no_grad():
+                trunk_err = float((trunk(D, h, True) - trunk(D, h, False)).abs().max())
+            turns = []
+            for route in (False, True, True, False):  # device ms from the profiler, and ms per call on the host's clock
+                dev_ms, _, by_name = profile_ms(lambda: trunk_step(route), reps=3)
+                chain = sum(t for n, t in by_name.items() if "chain_fwd" in n or "chain_bwd" in n)
+                turns.append({"kernels_route": route, "device_ms": dev_ms, "chain_kernels_ms": chain,
+                              "call_ms": cuda_ms(lambda: trunk_step(route), reps=3, repeats=3)})
+            rec["trunk_fwd_bwd"] = {"batch": B_SLICE, "turns": turns, "max_abs_diff": trunk_err}
+            log("critic-rates", f"four-block trunk fwd+bwd, fp32 B={B_SLICE}, in turns (device ms / ms per call): " + ", ".join(
+                f"{'chain kernels' if t['kernels_route'] else 'unfused pair'} {t['device_ms']:.3f} / {t['call_ms']:.3f}"
+                for t in turns) + f"; chain kernels' share of the kernel route {turns[1]['chain_kernels_ms']:.3f} ms; "
+                f"outputs differ by {trunk_err:.3g}")
+            # what the same float32 model costs when cuDNN may use TF32, PyTorch's default
+            torch.backends.cudnn.allow_tf32 = True
+            rec["tf32_conv_forward_ms"] = cuda_ms(forward, reps=5, repeats=3)
+            rec["tf32_conv_d_phase_ms"] = cuda_ms(d_step, reps=2, repeats=3)
+            torch.backends.cudnn.allow_tf32 = False
+            log("critic-rates", f"float32 B={B} with TF32 convolutions allowed (timing only): D forward "
+                f"{rec['tf32_conv_forward_ms']:.3f} ms, d_phase fwd+bwd {rec['tf32_conv_d_phase_ms']:.3f} ms")
+        del D
+    return rates
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -543,18 +988,23 @@ def main():
     k1, k1_rows = check_fused_bias_act(dev, gen)
     k2 = check_fps(dev, gen)
     k3, k3_rows = check_emd(dev, gen)
-    G_cpu, launches, slice_rec = phase_slice(dev)
+    k4, k5, chain_rows = check_fused_chain(dev, gen)
+    G_cpu, launches, slice_rec, x_fake = phase_slice(dev)
     k1["launches"], k2["launches"] = launches["fused_bias_act"], launches["fps"]
     eval_launches, eval_rec = phase_evaluate(G_cpu, dev)
     k3["launches"] = eval_launches["emd"]
     rates = phase_rates(G_cpu, dev)
-    ks = [k1, k2, k3]
+    D_cpu, critic_launches, critic_rec = phase_critic(x_fake, dev)
+    k4["launches"], k5["launches"] = critic_launches["fused_chain_fwd"], critic_launches["fused_chain_bwd"]
+    critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
+    ks = [k1, k2, k3, k4, k5]
 
     record = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
         "kernels": ks, "fused_bias_act_sites": k1_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
-        "evaluate": eval_rec, "rates": rates,
+        "evaluate": eval_rec, "rates": rates, "fused_chain_sites": chain_rows, "critic": critic_rec,
+        "critic_rates": critic_rates,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

@@ -1,9 +1,11 @@
-"""JAX generator variables and PointNet parameters -> the port's state_dicts.
+"""JAX model variables and PointNet parameters -> the port's state_dicts.
 
 The port's submodules carry the flax scope names, so the bridge is a flatten of the
 nested {"params", "stats", "consts"} trees into dotted paths: params become
 parameters, "stats" (w_avg, ema_var) and "consts" (Fourier freqs, phase) become
-buffers under the same paths. Leaves may be numpy or JAX arrays (anything
+buffers under the same paths; a discriminator has the "params" collection only
+({"params": {"res0": {"conv2": {"conv": {"weight": ...}}}}} -> res0.conv2.conv.weight).
+Leaves may be numpy or JAX arrays (anything
 np.asarray takes); nothing of JAX is imported here.
 
 The JAX PointNet keeps its parameters in a nested dict shaped like the torch state dict
@@ -54,8 +56,8 @@ def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Load a JAX generator's variables into the port model; a missing or extra key
-    fails (strict=True)."""
+    """Load a JAX generator's or discriminator's variables into the port model; a
+    missing or extra key fails (strict=True)."""
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
     return model
 

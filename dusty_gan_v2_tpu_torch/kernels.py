@@ -6,7 +6,8 @@ waits for every one. Libraries go to ``dusty_gan_v2_tpu_torch/_build/`` (git-ign
 under a name that hashes the source and its flags, so an edited source is rebuilt and
 an unchanged one is reused. Each source has its own flags (NVCC_FLAGS): fps.cu must not
 contract a*b+c to FMA or its indices drift from the plain scan's, emd.cu pins the
-rounding of its distance with intrinsics and lets the compiler fuse the rest. Nothing
+rounding of its distance with intrinsics and lets the compiler fuse the rest, as does
+fused_chain.cu for its activation while its products accumulate with FMA. Nothing
 is built at import: the first kernel launch (or an explicit ``build_all()``) triggers
 the build.
 """
@@ -32,6 +33,7 @@ NVCC_FLAGS = {
     "fused_bias_act": (*_TARGET, "--fmad=false", *_OUTPUT),
     "fps": (*_TARGET, "--fmad=false", *_OUTPUT),
     "emd": (*_TARGET, *_OUTPUT),
+    "fused_chain": (*_TARGET, *_OUTPUT),
 }
 SOURCES = tuple(NVCC_FLAGS)
 

@@ -1,4 +1,4 @@
-"""Model builder (counterpart of dusty_gan_v2_tpu/models/builder.py::build_generator)."""
+"""Model builders (counterpart of dusty_gan_v2_tpu/models/builder.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import torch
 from ..utils import resolve_device
 from . import dusty_v2
 
-__all__ = ["build_generator"]
+__all__ = ["build_generator", "build_discriminator"]
 
 
 def _normalize(kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -39,3 +39,19 @@ def build_generator(cfg: Dict[str, Any], device="cuda", seed: int = 0) -> dusty_
     )
     G.reset_parameters(torch.Generator().manual_seed(seed))
     return G.to(device).eval()
+
+
+def build_discriminator(cfg: Dict[str, Any], device="cuda", seed: int = 0) -> dusty_v2.Discriminator:
+    """cfg: {"arch", "layer_kwargs", "compute_dtype"} (the JAX package's schema; the
+    cfg's compute_dtype is the default of layer_kwargs'). Weights are drawn on the CPU
+    from a torch.Generator seeded with `seed`, then moved to `device` (CUDA by default;
+    raises when no card is present)."""
+    device = resolve_device(device)
+    arch = cfg["arch"]
+    if arch != "dusty_v2":
+        raise NotImplementedError(f"discriminator arch {arch!r} is not ported yet")
+    kwargs = _normalize(cfg["layer_kwargs"])
+    kwargs.setdefault("compute_dtype", cfg.get("compute_dtype", "float32"))
+    D = dusty_v2.Discriminator(**kwargs)
+    D.reset_parameters(torch.Generator().manual_seed(seed))
+    return D.to(device)

@@ -1,14 +1,17 @@
 """DUSty v2 generator, eval path: mapping network, five synthesis blocks over a
-multiscale laser-angle pyramid, multi-head skip accumulation and the ray-drop model.
+multiscale laser-angle pyramid, multi-head skip accumulation and the ray-drop model;
+and the DUSty v2 discriminator: BlurVH pre-blur, 1x1 stem, residual blocks down to a
+height of 4, minibatch-stddev epilogue.
 
 Counterpart of dusty_gan_v2_tpu/models/dusty_v2.py (MappingNetwork, Head,
-SynthesisBlock, downsample_angle, SynthesisNetwork, Generator, build_pe_cache).
-Submodules carry the flax scope names (mapping_network.fc0,
-synthesis_network.b3.conv1.mod, ...head.image, ...bias_act1), so a JAX variable tree
-maps onto the state_dict by flattening its paths (convert/jax_variables.py).
+SynthesisBlock, downsample_angle, SynthesisNetwork, Generator, build_pe_cache,
+ResidualBlock, Discriminator). Submodules carry the flax scope names
+(mapping_network.fc0, synthesis_network.b3.conv1.mod, ...head.image, ...bias_act1,
+res0.conv2.conv), so a JAX variable tree maps onto the state_dict by flattening its
+paths (convert/jax_variables.py).
 
-Not ported yet: training (w_avg update, aug_coords shift, style mixing), noise
-injection, and the discriminator.
+Not ported yet: the generator's training path (w_avg update, aug_coords shift, style
+mixing), noise injection, and rematerialized discriminator blocks.
 """
 
 from __future__ import annotations
@@ -25,8 +28,14 @@ from ..ops import (
     FourierFeature,
     FusedLeakyReLU,
     ModConv2d,
+    RingConv2d,
+    blur_conv_fusable,
+    blur_vh,
     fourier_out_ch,
+    fused_act_resample,
+    fused_resample,
     make_resample,
+    minibatch_stddev,
     pixel_norm,
     resample,
     sample_logistic,
@@ -37,10 +46,16 @@ from .heads import resolve_act
 
 __all__ = [
     "MappingNetwork", "Head", "SynthesisBlock", "SynthesisNetwork", "Generator",
-    "downsample_angle", "build_pe_cache",
+    "downsample_angle", "build_pe_cache", "ResidualBlock", "Discriminator",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _reset_children(module: nn.Module, generator: torch.Generator) -> None:
+    for m in module.modules():
+        if m is not module and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
 
 
 class MappingNetwork(nn.Module):
@@ -291,9 +306,7 @@ class Generator(nn.Module, GeneratorMixin):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every weight and buffer anew from `generator` (module order)."""
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
+        _reset_children(self, generator)
         with torch.no_grad():
             self.w_avg.zero_()
 
@@ -330,3 +343,108 @@ def build_pe_cache(G: Generator, angle: torch.Tensor):
     then skips the angle pyramid and the sin/cos volumes on every call."""
     with torch.no_grad():
         return G.synthesis_network.pe_cache(angle)
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 -> bias-act -> blur -> conv3x3 stride 2 -> bias-act, plus the skip
+    blur -> conv1x1 stride 2; (main + skip) / sqrt(2).
+
+    Two routes for the blurs. `blur_fuse=True` (forward and input gradients) folds each
+    blur into the strided convolution after it (ops/blurconv.py), where the site
+    composes. Otherwise, and on every training call, the `bias_act1 -> blur` pair is
+    one fused chain op and the skip's blur another (ops/fused_chain.py: the chain
+    kernels on the card, the unfused pair the JAX block computes on the CPU)."""
+
+    WINDOW = (1, 3, 3, 1)
+
+    def __init__(self, in_ch: int, out_ch: int, ring: bool = True):
+        super().__init__()
+        self.ring = ring
+        self.blur = make_resample(window=self.WINDOW, ring=ring)
+        self.conv1 = RingConv2d(in_ch, in_ch, 3, 1, 1, use_bias=False, ring=ring)
+        self.bias_act1 = FusedLeakyReLU(in_ch)
+        self.conv2 = RingConv2d(in_ch, out_ch, 3, 2, 1, use_bias=False, ring=ring, blur_window=self.WINDOW)
+        self.bias_act2 = FusedLeakyReLU(out_ch)
+        self.skip = RingConv2d(in_ch, out_ch, 1, 2, 0, use_bias=False, ring=ring, blur_window=self.WINDOW)
+
+    def forward(self, x: torch.Tensor, blur_fuse: bool = True) -> torch.Tensor:
+        fuse = blur_fuse and blur_conv_fusable(x.shape, 3, 2, 1, self.ring, "replicate")
+        h = self.conv1(x)
+        if fuse:
+            h = self.conv2(self.bias_act1(h), blur_fuse=True)
+            s = self.skip(x, blur_fuse=True)
+        else:
+            act = self.bias_act1
+            h = self.conv2(fused_act_resample(h, act.bias, self.blur, act.negative_slope, act.scale))
+            s = self.skip(fused_resample(x, self.blur))
+        return (self.bias_act2(h) + s) / math.sqrt(2.0)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2-style residual discriminator with the BlurVH pre-blur and a
+    minibatch-stddev epilogue; (B, in_ch, H, W) -> (B, 1) logits.
+
+    Per-layer dtype policy: under compute_dtype="bfloat16" the first `num_fp16_layers`
+    layers (pre-blur, stem, stem activation, each block; all when -1) run in bfloat16;
+    the epilogue from the minibatch stddev on is float32."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        ch_base: int = 32,
+        ch_max: int = 512,
+        mbdis_group: int = 4,
+        mbdis_feat: int = 1,
+        resolution: Tuple[int, int] = (64, 512),
+        ring: bool = True,
+        num_fp16_layers: int = -1,
+        pre_blur: bool = True,
+        compute_dtype: str = "float32",
+        remat: bool = False,
+    ):
+        super().__init__()
+        if remat:
+            raise NotImplementedError("rematerialized residual blocks are not ported yet (remat=False)")
+        self.in_ch, self.ring, self.pre_blur = in_ch, ring, pre_blur
+        self.mbdis_group, self.mbdis_feat = mbdis_group, mbdis_feat
+        self.resolution = tuple(resolution)
+        self.num_fp16_layers, self.compute_dtype = num_fp16_layers, compute_dtype
+        self.n_down = int(np.log2(min(self.resolution) / 4))
+        res_out = tuple(r >> self.n_down for r in self.resolution)
+        ch = lambda i: min(ch_base << i, ch_max)  # noqa: E731
+
+        self.stem = RingConv2d(in_ch * 2 if pre_blur else in_ch, ch(0), 1, 1, 0, use_bias=False, ring=ring)
+        self.stem_act = FusedLeakyReLU(ch(0))
+        for j in range(self.n_down):
+            self.add_module(f"res{j}", ResidualBlock(ch(j), ch(j + 1), ring))
+        # the epilogue's width is ch(n_down): ch(4) at the 64-high resolution
+        ch_epi = ch(self.n_down)
+        self.epi_conv = RingConv2d(ch_epi + mbdis_feat, ch_epi, 3, 1, 1, use_bias=False, ring=ring)
+        self.epi_act1 = FusedLeakyReLU(ch_epi)
+        self.fc1 = EqualLRDense(ch_epi * int(np.prod(res_out)), ch_epi, use_bias=False)
+        self.epi_act2 = FusedLeakyReLU(ch_epi)
+        self.fc2 = EqualLRDense(ch_epi, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every weight anew from `generator` (module order); biases are zero."""
+        _reset_children(self, generator)
+
+    def layer_dtype(self, i: int) -> torch.dtype:
+        low = self.compute_dtype == "bfloat16" and (self.num_fp16_layers == -1 or i < self.num_fp16_layers)
+        return torch.bfloat16 if low else torch.float32
+
+    def forward(self, x: torch.Tensor, blur_fuse: bool = True) -> torch.Tensor:
+        i, h = 0, x
+        if self.pre_blur:
+            h = blur_vh(h.to(self.layer_dtype(i)), ring=self.ring)
+            i += 1
+        h = self.stem(h.to(self.layer_dtype(i)))
+        h = self.stem_act(h.to(self.layer_dtype(i + 1)))
+        i += 2
+        for j in range(self.n_down):
+            h = getattr(self, f"res{j}")(h.to(self.layer_dtype(i)), blur_fuse)
+            i += 1
+        h = minibatch_stddev(h.float(), group=self.mbdis_group, features=self.mbdis_feat)
+        h = self.epi_act1(self.epi_conv(h))
+        h = self.epi_act2(self.fc1(h.reshape(h.shape[0], -1)))
+        return self.fc2(h)

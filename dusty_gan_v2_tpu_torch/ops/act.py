@@ -28,10 +28,11 @@ def fused_leaky_relu(
 ) -> torch.Tensor:
     """Plain version: leaky_relu(x + bias) * scale, bias over axis 1.
 
-    The math is in float32 with one rounding to x's dtype (the kernel's arithmetic);
-    for float32 input that is exactly the JAX formula."""
+    The math is in float32 (float64 for float64 input) with one rounding to x's dtype
+    (the kernel's arithmetic); for float32 input that is exactly the JAX formula."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     bias = bias.to(x.dtype).reshape((1, -1) + (1,) * (x.ndim - 2))
-    y = x.float() + bias.float()
+    y = x.to(acc) + bias.to(acc)
     y = torch.where(y >= 0, y, y * negative_slope) * scale
     return y.to(x.dtype)
 
@@ -92,7 +93,7 @@ class _FusedBiasAct(torch.autograd.Function):
         (y,) = ctx.saved_tensors
         # y >= 0 <=> pre-activation >= 0 (scale > 0): the mask comes from the output;
         # the math is in float32 with one rounding, as in the forward
-        g32 = g.float()
+        g32 = g.to(torch.promote_types(g.dtype, torch.float32))
         dx = torch.where(y >= 0, g32, g32 * ctx.negative_slope) * ctx.scale
         db = dx.sum(dim=(0,) + tuple(range(2, dx.ndim)))
         return dx.to(g.dtype), db, None, None

@@ -1,17 +1,24 @@
-"""Equalized learning-rate dense layer (counterpart of dusty_gan_v2_tpu/ops/linear.py).
+"""Equalized learning-rate layers (counterpart of dusty_gan_v2_tpu/ops/linear.py).
 
-The weight is stored (out, in), drawn N(0, 1/lr_mul), and scaled at run time by
-1/sqrt(in); the output by gain * lr_mul.
+Weights are stored in the torch layout ((out, in) dense, (O, I, kh, kw) conv), drawn
+N(0, 1/lr_mul), and scaled at run time by 1/sqrt(fan_in); the output by gain * lr_mul.
+The convolutions themselves are F.conv2d (cuDNN on the card), as they are plain XLA
+convolutions in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["EqualLRDense"]
+from .blurconv import blur_conv1x1s2_ring, blur_conv3x3s2_ring, blur_conv_fusable
+from .pad import conv_ring_fast, pad2d
+
+__all__ = ["EqualLRDense", "EqualLRConv2d", "RingConv2d"]
 
 
 class EqualLRDense(nn.Module):
@@ -39,3 +46,84 @@ class EqualLRDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y * (self.gain * self.lr_mul)
+
+
+class EqualLRConv2d(nn.Module):
+    """Equal-LR Conv2d, NCHW, fan_in = in_ch * kh * kw; padding is the caller's.
+
+    `ring_fast`: the input comes unpadded and the 3x3 / 4x4 convolution pads it by 1
+    (circular W, `ring_fast_mode` H; ops/pad.py::conv_ring_fast). `blur_window`: the
+    input comes unpadded and unblurred, and the module computes conv(blur(x)) as one
+    composite strided convolution (ops/blurconv.py)."""
+
+    def __init__(
+        self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
+        use_bias: bool = True, gain: float = 1.0, lr_mul: float = 1.0, ring_fast: bool = False,
+        ring_fast_mode: str = "replicate", blur_window: Optional[Tuple[float, ...]] = None,
+    ):
+        super().__init__()
+        self.in_ch, self.out_ch = in_ch, out_ch
+        self.kernel_size, self.stride = tuple(kernel_size), tuple(stride)
+        self.gain, self.lr_mul = gain, lr_mul
+        self.ring_fast, self.ring_fast_mode = ring_fast, ring_fast_mode
+        self.blur_window = None if blur_window is None else tuple(blur_window)
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0 / self.lr_mul, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, blur_fuse: bool = False) -> torch.Tensor:
+        """`blur_fuse` takes the composite route; it needs a `blur_window`."""
+        kh, kw = self.kernel_size
+        w = self.weight * (1.0 / math.sqrt(self.in_ch * kh * kw))
+        if blur_fuse:
+            if self.blur_window is None:
+                raise ValueError("blur_fuse needs a conv built with a blur_window")
+            fused = blur_conv3x3s2_ring if kh == 3 else blur_conv1x1s2_ring
+            y = fused(x, w, self.blur_window)
+        elif self.ring_fast:
+            y = conv_ring_fast(x, w.to(x.dtype), self.stride, self.ring_fast_mode)
+        else:
+            y = F.conv2d(x, w.to(x.dtype), stride=self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
+        return y * (self.gain * self.lr_mul)
+
+
+class RingConv2d(nn.Module):
+    """Pad (circular W when `ring`, `pad_mode` H) + equal-LR Conv2d; the child is named
+    `conv`, so a flax path res0/conv2/conv/weight is the key res0.conv2.conv.weight.
+
+    With a `blur_window`, forward(x, blur_fuse=True) folds a preceding FIR blur into the
+    convolution: the caller then passes the unblurred input."""
+
+    def __init__(
+        self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, padding: int = 1,
+        use_bias: bool = True, ring: bool = False, pad_mode: str = "replicate", gain: float = 1.0,
+        lr_mul: float = 1.0, blur_window: Optional[Tuple[float, ...]] = None,
+    ):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.ring, self.pad_mode = ring, pad_mode
+        # the hot case (dusty_v2 D): 3x3 or 4x4, pad 1, circular W, stride 1 or 2
+        self.ring_fast = (
+            kernel_size in (3, 4) and padding == 1 and ring and pad_mode in ("replicate", "reflect")
+            and stride in (1, 2) and not (kernel_size == 4 and stride == 1)
+        )
+        self.conv = EqualLRConv2d(
+            in_ch, out_ch, (kernel_size, kernel_size), (stride, stride), use_bias=use_bias, gain=gain,
+            lr_mul=lr_mul, ring_fast=self.ring_fast, ring_fast_mode=pad_mode, blur_window=blur_window,
+        )
+
+    def forward(self, x: torch.Tensor, blur_fuse: bool = False) -> torch.Tensor:
+        if blur_fuse:
+            if not blur_conv_fusable(x.shape, self.kernel_size, self.stride, self.padding, self.ring, self.pad_mode):
+                raise ValueError(f"blur_fuse on a conv site that does not compose: input {tuple(x.shape)}")
+            return self.conv(x, blur_fuse=True)
+        if not self.ring_fast and self.padding != 0:
+            x = pad2d(x, self.padding, ring=self.ring, mode=self.pad_mode)
+        return self.conv(x)

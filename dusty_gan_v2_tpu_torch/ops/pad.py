@@ -1,24 +1,32 @@
-"""Ring (circular-azimuth) padding of one axis.
+"""Ring (circular-azimuth) padding, and the ring-padded 3x3 / 4x4 convolution.
 
-Counterpart of dusty_gan_v2_tpu/ops/pad.py::_pad_axis, circular, replicate and reflect
-modes: LiDAR range images are periodic along the azimuth (W), so W pads circularly and
-H by edge replication; the SWD metric's Gaussian pyramid pads both axes by reflection.
+Counterpart of dusty_gan_v2_tpu/ops/pad.py (_pad_axis, pad2d, conv_ring_fast): LiDAR
+range images are periodic along the azimuth (W), so W pads circularly and H by edge
+replication or reflection; the SWD metric's Gaussian pyramid pads both axes by
+reflection.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["pad_axis"]
+__all__ = ["pad_axis", "pad2d", "conv_ring_fast", "conv3x3_ring_fast"]
 
 
 def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.Tensor:
     """Pad one axis by (lo, hi): "circular" wraps around, "replicate" repeats the edge,
-    "reflect" mirrors without repeating the edge."""
+    "reflect" mirrors without repeating the edge, "zeros" pads with 0."""
     if lo == 0 and hi == 0:
         return x
     n = x.shape[axis]
-    if mode == "circular":
+    if mode == "zeros":
+        shape = list(x.shape)
+        shape[axis] = lo
+        low = x.new_zeros(shape)
+        shape[axis] = hi
+        parts = [low, x, x.new_zeros(shape)]
+    elif mode == "circular":
         if lo > n or hi > n:
             raise ValueError(f"circular pad ({lo},{hi}) > size {n}")
         parts = [x.narrow(axis, n - lo, lo), x, x.narrow(axis, 0, hi)]
@@ -32,3 +40,35 @@ def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.T
     else:
         raise ValueError(f"unknown pad mode: {mode}")
     return torch.cat(parts, dim=axis)
+
+
+def pad2d(x: torch.Tensor, padding, ring: bool = False, mode: str = "replicate") -> torch.Tensor:
+    """Pad an NCHW tensor by an int or (left, right, top, bottom): W circularly when
+    `ring`, else by `mode`; H by `mode`."""
+    if isinstance(padding, int):
+        left = right = top = bottom = padding
+    else:
+        left, right, top, bottom = padding
+    x = pad_axis(x, -1, left, right, "circular" if ring else mode)
+    return pad_axis(x, -2, top, bottom, mode)
+
+
+def conv_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1), h_mode: str = "replicate") -> torch.Tensor:
+    """k x k convolution (k in {3, 4}, stride 1 or 2) over circular-W / `h_mode`-H
+    padding 1: a VALID convolution of pad2d(x, 1, ring=True, mode=h_mode).
+
+    The JAX function adds the wrap and edge contributions back as boundary corrections
+    to spare a TPU the padded copy (and needs even H, W at stride 2 for it); here the
+    padded copy is made and cuDNN convolves it, at any size.
+    x (B, I, H, W); w (O, I, k, k), already scaled; returns (B, O, oH, oW)."""
+    k, s = int(w.shape[-1]), int(stride[0])
+    if stride[1] != stride[0] or s not in (1, 2) or tuple(w.shape[-2:]) != (k, k) or k not in (3, 4):
+        raise ValueError(f"conv_ring_fast takes a 3x3 or 4x4 kernel at stride 1 or 2, got {tuple(w.shape)}, {stride}")
+    if h_mode not in ("replicate", "reflect"):
+        raise ValueError(f"conv_ring_fast pads H by replicate or reflect, got {h_mode!r}")
+    return F.conv2d(pad2d(x, 1, ring=True, mode=h_mode), w, stride=(s, s))
+
+
+def conv3x3_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
+    """3x3 circular-W / replicate-H convolution (conv_ring_fast with its default mode)."""
+    return conv_ring_fast(x, w, stride, h_mode="replicate")

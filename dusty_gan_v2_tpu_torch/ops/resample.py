@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from .pad import pad_axis
 
-__all__ = ["ResamplePlan", "make_resample", "resample"]
+__all__ = ["ResamplePlan", "make_resample", "resample", "blur_vh"]
 
 
 def _pair(v):
@@ -155,3 +155,11 @@ def resample(x: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     H, W = x.shape[-2:]
     Hmat, WmatT = _matrices_on(plan, H, W, x.device, x.dtype)
     return torch.matmul(Hmat, torch.matmul(x, WmatT))
+
+
+def blur_vh(x: torch.Tensor, window=(1, 2, 1), ring: bool = True) -> torch.Tensor:
+    """NR-GAN vertical / horizontal anti-aliasing: the V-blur and the H-blur of x,
+    concatenated along the channels (2x channels)."""
+    pv = make_resample(window=tuple(window), ring=ring, direction="h")
+    ph = make_resample(window=tuple(window), ring=ring, direction="w")
+    return torch.cat([resample(x, pv), resample(x, ph)], dim=1)

@@ -22,7 +22,7 @@ from .metrics import downsample_point_clouds
 from .utils import resolve_device, tanh_to_sigmoid
 
 __all__ = [
-    "ANGLE_FILE", "full_gen_cfg", "load_angle", "make_coord_bridge", "sample",
+    "ANGLE_FILE", "full_gen_cfg", "full_disc_cfg", "load_angle", "make_coord_bridge", "sample",
     "sample_and_downsample",
 ]
 
@@ -57,6 +57,18 @@ def full_gen_cfg(z_dim: int = 512, resolution=(64, 512)) -> dict:
     cfg["mapping_kwargs"].update(in_ch=z_dim, out_ch=z_dim)
     cfg["synthesis_kwargs"].update(in_ch=z_dim, resolution=tuple(resolution))
     return cfg
+
+
+def full_disc_cfg(resolution=(64, 512)) -> dict:
+    """The flagship dusty_v2 discriminator configuration (configs/gans/dusty_v2.yaml,
+    model.discriminator)."""
+    return {
+        "arch": "dusty_v2",
+        "layer_kwargs": {
+            "in_ch": 1, "ring": True, "ch_base": 32, "ch_max": 512, "resolution": tuple(resolution),
+            "mbdis_group": 4, "mbdis_feat": 1, "num_fp16_layers": -1, "pre_blur": True,
+        },
+    }
 
 
 def load_angle(resolution=(64, 512), device="cuda") -> torch.Tensor:

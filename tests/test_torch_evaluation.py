@@ -206,7 +206,7 @@ def test_port_rule_covers_the_evaluation_modules():
     assert {"evaluation.py", "metrics/emd.py", "metrics/distance.py", "metrics/cov_mmd_1nna.py", "metrics/jsd.py",
             "metrics/swd.py", "metrics/pointnet.py", "metrics/fpd_kpd.py", "metrics/depth.py"} <= names
     test_port_imports_no_jax()
-    assert kernels.SOURCES == ("fused_bias_act", "fps", "emd")
+    assert kernels.SOURCES == ("fused_bias_act", "fps", "emd", "fused_chain")
     assert all((kernels.CSRC / f"{name}.cu").is_file() for name in kernels.SOURCES)
 
 
@@ -219,6 +219,7 @@ def test_nvcc_flags_are_per_source():
                      "-shared -Xcompiler -fPIC -Xptxas -v")
     assert " ".join(NVCC_FLAGS["fps"]) == " ".join(NVCC_FLAGS["fused_bias_act"]) == with_fmad_off
     assert " ".join(NVCC_FLAGS["emd"]) == with_fmad_off.replace(" --fmad=false", "")
+    assert NVCC_FLAGS["fused_chain"] == NVCC_FLAGS["emd"]  # pins its activation, FMA in its products
     emd_src = (PORT_ROOT / "csrc" / "emd.cu").read_text()
     for needle in ("__fmul_rn", "__fadd_rn", "__fsub_rn", "expf(", "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert needle in emd_src, needle
