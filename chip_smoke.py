@@ -11,8 +11,11 @@
    8 x 32768 -> 2048, the fused EMD at 256 pairs of 2048 x 2048 points (uniform clouds
    and clouds with 30% of their points on the origin), the fused act -> resample chain
    forward (with and without activation) and backward at the discriminator's four
-   trunk shapes at B=8 in f32 and bf16, plus up-2 and down-2 plans (at the generator's
-   site and at ragged sizes), dense random operators and the transposed-operator use.
+   trunk shapes at B=8 and the widest at B=128, in f32 and bf16, each beside its
+   yardsticks (the unfused pair, the einsum of the bare resample, the backward's adjoint
+   pair), plus up-2 and down-2 plans (at the generator's site and at ragged sizes),
+   dense random operators, the transposed-operator use, and a NaN in one plane, which
+   must reach only the outputs of its band.
 4. slice: the full-width dusty_v2 generator (full_gen_cfg(), seeded random weights)
    samples B=8 at psi 0.7 with fixed logistic noise, and the clouds are
    FPS-downsampled to 2048 points, through the port's entry points; the launch
@@ -72,7 +75,7 @@ from dusty_gan_v2_tpu_torch.ops import (
     fused_chain_bwd_cuda, fused_chain_fwd_cuda, fused_leaky_relu, fused_resample_plain, make_resample, resample,
     sample_logistic,
 )
-from dusty_gan_v2_tpu_torch.ops.fused_chain import ChainOperators, chain_operators
+from dusty_gan_v2_tpu_torch.ops.fused_chain import chain_operators, operators_from_dense
 from dusty_gan_v2_tpu_torch.sampling import (
     full_disc_cfg, full_gen_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample,
 )
@@ -89,6 +92,7 @@ SFU_OPS_PER_S = F32_FLOPS_PER_S / 2 / 128 * 16
 # site (bias_act1), blocks 1-4 two (bias_act1, bias_act2)
 K1_SITES = [((512, 4, 32), 1), ((256, 8, 64), 2), ((128, 16, 128), 2), ((64, 32, 256), 2), ((32, 64, 512), 2)]
 B_SLICE, N_POINTS, K_POINTS = 8, 64 * 512, 2048
+B_WIDE = 128  # the batch bench.py times: the widest chain site is timed there too
 # per-sample (C, H, W) of the act -> blur sites of full_disc_cfg(): the input of each
 # residual block, where the main path runs the chain with the activation and the skip
 # without
@@ -186,12 +190,6 @@ def kernel_ms(fn, reps):
     return ms if ms is not None else cuda_ms(fn, reps)
 
 
-def kernel_ms3(fn, reps):
-    """The median of three kernel_ms windows: a window that lost every record of one
-    kernel reads low and looks complete, and the median drops it."""
-    return statistics.median(kernel_ms(fn, reps) for _ in range(3))
-
-
 def launch_ms(fn, reps):
     """CUDA-event ms of each of `reps` single calls of fn, for a wrapper that launches
     one long kernel: the events enclose nothing else, and the few microseconds they add
@@ -209,6 +207,35 @@ def launch_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def graph_ms(fn, reps=20, repeats=5):
+    """Device ms per call of fn: the median over `repeats` replays of a CUDA graph that
+    holds `reps` back-to-back calls, timed with CUDA events. The graph takes the host
+    out of the time (a wrapper's checks last longer than a small kernel) and needs no
+    profiler records, which the card's machine loses (up to 3 of 10 launches of one
+    kernel in a window). Inputs that fit the 50 MB L2 cache stay there from call to call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
 
 
 def smi_clocks():
@@ -397,17 +424,23 @@ def chain_tol(ref, dtype, inter=None, second=None):
     return 2 * bf16_ulp(ref) + second(bf16_ulp(inter))
 
 
-def chain_bound(n_planes, left, right, left_first, esize):
-    """(bound ms, "bytes" or "operations", dense-product ms) of one chain launch
-    out = left (ho, h) @ plane (h, w) @ right (w, wo). Bytes: every plane read and
-    written once (the backward, which runs `left_first`, also reads the saved input, of
-    the output's shape) and the operators read once. Operations: the multiply-adds the
-    two products need on these operators, which are sparse (a zero needs no operation);
-    the dense count is what a kernel blind to the zeros does."""
+def chain_bound(n_planes, o, backward):
+    """(bound ms, "bytes" or "operations", dense-product ms) of one chain launch with the
+    operators `o`: out = hm (ho, h) @ plane (h, w) @ wmT (w, wo), or for the backward
+    hmT @ g @ wm times the mask. Bytes: every plane read and written once (the backward
+    also reads the saved input, of the output's shape) and the operators read once in the
+    form the kernel reads them: the ELL indices (int32) and values of its two passes.
+    Operations: the multiply-adds the two products need on these operators, which are
+    sparse (a zero needs no operation); the dense count is what a kernel blind to the
+    zeros does."""
+    left, right = (o.hmT, o.wm) if backward else (o.hm, o.wmT)
+    forms = (o.hmT_ell, o.wm_ell) if backward else (o.hm_ell, o.wmT_ell)
     (ho, h), (w, wo) = left.shape, right.shape
-    nbytes = esize * (n_planes * (h * w + (2 if left_first else 1) * ho * wo) + left.numel() + right.numel())
+    esize = left.element_size()
+    op_bytes = sum(e.idx.numel() * e.idx.element_size() + e.val.numel() * e.val.element_size() for e in forms)
+    nbytes = esize * n_planes * (h * w + (2 if backward else 1) * ho * wo) + op_bytes
     nnz_l, nnz_r = int((left != 0).sum()), int((right != 0).sum())
-    if left_first:
+    if backward:
         need, dense = nnz_l * w + ho * nnz_r, ho * h * w + ho * w * wo
     else:
         need, dense = h * nnz_r + nnz_l * wo, h * w * wo + ho * h * wo
@@ -436,15 +469,15 @@ def check_chain_case(x, b, g, plan, dtype, tag, o=None):
 
     y = fused_leaky_relu(x, b)
     ref = fused_act_resample_plain(x, b, o.wmT, o.hm)
-    hold("fwd_act", fused_chain_fwd_cuda(x, b, o.wmT, o.hm), ref, chain_tol(ref, dtype, torch.matmul(y, o.wmT), up))
+    hold("fwd_act", fused_chain_fwd_cuda(x, b, o), ref, chain_tol(ref, dtype, torch.matmul(y, o.wmT), up))
     ref = fused_resample_plain(x, o.wmT, o.hm)
-    hold("fwd", fused_chain_fwd_cuda(x, None, o.wmT, o.hm), ref, chain_tol(ref, dtype, torch.matmul(x, o.wmT), up))
+    hold("fwd", fused_chain_fwd_cuda(x, None, o), ref, chain_tol(ref, dtype, torch.matmul(x, o.wmT), up))
     ref = fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT)
     t = torch.matmul(o.hmT, g)
-    hold("bwd", fused_chain_bwd_cuda(g, x, b, o.wm, o.hmT), ref, chain_tol(ref, dtype, t, lambda u: math.sqrt(2.0) * down(u)))
+    hold("bwd", fused_chain_bwd_cuda(g, x, b, o), ref, chain_tol(ref, dtype, t, lambda u: math.sqrt(2.0) * down(u)))
     # the resample's adjoint is the forward kernel with the transposed operators
     ref = fused_resample_plain(g, o.wm, o.hmT)
-    hold("fwd_transposed", fused_chain_fwd_cuda(g, None, o.wm, o.hmT), ref,
+    hold("fwd_transposed", fused_chain_fwd_cuda(g, None, o.adjoint), ref,
          chain_tol(ref, dtype, torch.matmul(g, o.wm), lambda u: torch.matmul(o.hmT.abs().float(), u)))
     if plan is None:
         return errs
@@ -457,15 +490,106 @@ def check_chain_case(x, b, g, plan, dtype, tag, o=None):
     return errs
 
 
+def einsum_resample(x, o):
+    """The bare resample as one PyTorch call: K4's library yardstick (the port never calls it)."""
+    return torch.einsum("ih,bchw,wj->bcij", o.hm, x, o.wmT)
+
+
+def adjoint_pair(g, mask, o):
+    """K5's yardstick: the adjoint resample as one einsum with the transposed operators,
+    then the multiply by the activation mask (computed beforehand, in g's dtype)."""
+    return torch.einsum("hi,bcij,jw->bchw", o.hmT, g, o.wm) * mask
+
+
+def time_chain_site(x, b, g, o, reps=20):
+    """Device ms of K4 (with and without the activation) and K5 at one site beside their
+    plain versions' (the bare one is the pair of matmuls), the unfused pair (the bias-act
+    kernel, then two matmuls), the einsum of the bare resample and K5's adjoint pair, all
+    timed alike (graph_ms: no host time); the bounds and the share of them reached."""
+    n = x.shape[0] * x.shape[1]
+    pre = x.float() + b.to(x.dtype).float().reshape(1, -1, 1, 1)
+    mask = torch.where(pre >= 0, math.sqrt(2.0), 0.2 * math.sqrt(2.0)).to(x.dtype)
+    del pre
+    fb, fby, fdense = chain_bound(n, o, backward=False)
+    bb, bby, bdense = chain_bound(n, o, backward=True)
+    times = {
+        "fwd_act_ms": graph_ms(lambda: fused_chain_fwd_cuda(x, b, o), reps),
+        "fwd_ms": graph_ms(lambda: fused_chain_fwd_cuda(x, None, o), reps),
+        "bwd_ms": graph_ms(lambda: fused_chain_bwd_cuda(g, x, b, o), reps),
+        "fwd_act_plain_ms": graph_ms(lambda: fused_act_resample_plain(x, b, o.wmT, o.hm), reps),
+        "fwd_plain_ms": graph_ms(lambda: fused_resample_plain(x, o.wmT, o.hm), reps),
+        "bwd_plain_ms": graph_ms(lambda: fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT), reps),
+        # what the card would run unfused: the bias-act kernel, then two matmuls
+        "fwd_act_pair_ms": graph_ms(lambda: fused_resample_plain(fused_bias_act_cuda(x, b), o.wmT, o.hm), reps),
+        "fwd_einsum_ms": graph_ms(lambda: einsum_resample(x, o), reps),
+        "bwd_adjoint_pair_ms": graph_ms(lambda: adjoint_pair(g, mask, o), reps),
+        "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_dense_ops_ms": fdense,
+        "bwd_bound_ms": bb, "bwd_bound_by": bby, "bwd_dense_ops_ms": bdense,
+    }
+    times.update(fwd_act_share=fb / times["fwd_act_ms"], fwd_share=fb / times["fwd_ms"], bwd_share=bb / times["bwd_ms"],
+                 fwd_not_slower_than_einsum=times["fwd_ms"] <= times["fwd_einsum_ms"],
+                 fwd_act_not_slower_than_pair=times["fwd_act_ms"] <= times["fwd_act_pair_ms"],
+                 bwd_not_slower_than_adjoint_pair=times["bwd_ms"] <= times["bwd_adjoint_pair_ms"])
+    return times
+
+
+def log_chain_site(shape, name, times, errs):
+    log("kernels", f"fused_chain {shape} {name}: fwd/bwd match; device ms fwd+act {times['fwd_act_ms']:.4f} "
+        f"(plain {times['fwd_act_plain_ms']:.4f}, K1 + 2 matmuls {times['fwd_act_pair_ms']:.4f}), fwd "
+        f"{times['fwd_ms']:.4f} (plain = 2 matmuls {times['fwd_plain_ms']:.4f}, einsum {times['fwd_einsum_ms']:.4f}), bound "
+        f"{times['fwd_bound_ms']:.4f} by {times['fwd_bound_by']} (share act {times['fwd_act_share']:.3f}, bare "
+        f"{times['fwd_share']:.3f}), dense products {times['fwd_dense_ops_ms']:.4f}; bwd {times['bwd_ms']:.4f} (plain "
+        f"{times['bwd_plain_ms']:.4f}, adjoint pair {times['bwd_adjoint_pair_ms']:.4f}), bound {times['bwd_bound_ms']:.4f} "
+        f"by {times['bwd_bound_by']} (share {times['bwd_share']:.3f}), dense products {times['bwd_dense_ops_ms']:.4f}; "
+        f"max abs err {errs}")
+
+
+def check_nan_band(dev, gen):
+    """A NaN in one plane of the input (K4, with and without the activation) or of the
+    gradient (K5): every other plane's output equals the NaN-free run bit for bit, and in
+    that plane exactly the outputs whose band covers the NaN are non-finite; the rest of
+    the plane equals the NaN-free run too. The NaN sits in column 0, where the ring wraps."""
+    blur = make_resample(window=BLUR_WINDOW, ring=True)
+    C, H, W = CHAIN_SITES[0]
+    p, h, w = 5, 10, 0
+    rec = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = torch.randn(2, C, H, W, device=dev, generator=gen).to(dtype)
+        g = torch.randn(2, C, H, W, device=dev, generator=gen).to(dtype)
+        b = torch.randn(C, device=dev, generator=gen)
+        o = chain_operators(blur, H, W, dev, dtype)
+        fwd_band = (o.hm[:, h] != 0)[:, None] & (o.wmT[w, :] != 0)[None, :]
+        bwd_band = (o.hmT[:, h] != 0)[:, None] & (o.wm[w, :] != 0)[None, :]
+        cases = {
+            "fwd_act": (lambda v: fused_chain_fwd_cuda(v, b, o), x, fwd_band),
+            "fwd": (lambda v: fused_chain_fwd_cuda(v, None, o), x, fwd_band),
+            "bwd": (lambda v: fused_chain_bwd_cuda(v, x, b, o), g, bwd_band),
+        }
+        for case, (fn, clean_in, band) in cases.items():
+            dirty_in = clean_in.clone()
+            dirty_in.view(-1, H, W)[p, h, w] = math.nan
+            clean, dirty = (fn(v).view(-1, *band.shape) for v in (clean_in, dirty_in))
+            others = torch.arange(clean.shape[0], device=dev) != p
+            assert torch.equal(clean[others], dirty[others]), f"{name} {case}: a NaN in plane {p} changed another plane"
+            bad = ~torch.isfinite(dirty[p])
+            assert torch.equal(bad, band), f"{name} {case}: {int(bad.sum())} non-finite outputs, band {int(band.sum())}"
+            assert torch.equal(clean[p][~band], dirty[p][~band]), f"{name} {case}: outside the band"
+            rec[f"{name}_{case}"] = int(bad.sum())
+    log("kernels", f"fused_chain NaN in one plane: other planes equal, non-finite outputs only on the band {rec}")
+    return rec
+
+
 def check_fused_chain(dev, gen):
-    """K4 / K5 against their plain versions at the discriminator's trunk shapes (B=8), and
-    their device times beside the plain versions', the unfused pair on the card (the
-    bias-act kernel plus two matmuls) and the bound."""
+    """K4 / K5 against their plain versions at the discriminator's trunk shapes (B=8, and
+    the widest at B=128), and their device times beside the plain versions', the unfused
+    pair on the card (the bias-act kernel plus two matmuls), the einsum of the bare
+    resample (K4's library call), K5's adjoint pair, and the bound."""
     blur = make_resample(window=BLUR_WINDOW, ring=True)
     rows, worst = [], {"fwd": 0.0, "bwd": 0.0}
-    total = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}
-    for C, H, W in CHAIN_SITES:
-        shape = (B_SLICE, C, H, W)
+    total = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_library_ms", "bwd_ms", "bwd_plain_ms",
+                              "bwd_bound_ms", "bwd_library_ms")}
+    for B, (C, H, W) in [(B_SLICE, site) for site in CHAIN_SITES] + [(B_WIDE, CHAIN_SITES[0])]:
+        shape = (B, C, H, W)
         x32 = torch.randn(shape, device=dev, generator=gen)
         b = torch.randn(C, device=dev, generator=gen)
         g32 = torch.randn(shape, device=dev, generator=gen)
@@ -473,39 +597,23 @@ def check_fused_chain(dev, gen):
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             x, g = x32.to(dtype), g32.to(dtype)
             errs = check_chain_case(x, b, g, blur, dtype, f"chain {shape} {name}")
-            o = chain_operators(blur, H, W, dev, dtype)
+            times = time_chain_site(x, b, g, chain_operators(blur, H, W, dev, dtype))
+            row[name] = {"max_abs_err": errs, **times}
             if dtype == torch.float32:
                 worst["fwd"] = max(worst["fwd"], errs["fwd_act"], errs["fwd"], errs["fwd_transposed"])
                 worst["bwd"] = max(worst["bwd"], errs["bwd"])
-            n, es = B_SLICE * C, x.element_size()
-            fb, fby, fdense = chain_bound(n, o.hm, o.wmT, False, es)
-            bb, bby, bdense = chain_bound(n, o.hmT, o.wm, True, es)
-            times = {
-                "fwd_act_ms": kernel_ms3(lambda: fused_chain_fwd_cuda(x, b, o.wmT, o.hm), reps=10),
-                "fwd_ms": kernel_ms3(lambda: fused_chain_fwd_cuda(x, None, o.wmT, o.hm), reps=10),
-                "bwd_ms": kernel_ms3(lambda: fused_chain_bwd_cuda(g, x, b, o.wm, o.hmT), reps=10),
-                "fwd_act_plain_ms": kernel_ms3(lambda: fused_act_resample_plain(x, b, o.wmT, o.hm), reps=10),
-                "fwd_plain_ms": kernel_ms3(lambda: fused_resample_plain(x, o.wmT, o.hm), reps=10),
-                "bwd_plain_ms": kernel_ms3(lambda: fused_act_resample_bwd_plain(g, x, b, o.wm, o.hmT), reps=10),
-                # what the card would run unfused: the bias-act kernel, then two matmuls
-                "fwd_act_pair_ms": kernel_ms3(lambda: resample(fused_bias_act_cuda(x, b), blur), reps=10),
-                "fwd_bound_ms": fb, "fwd_bound_by": fby, "fwd_dense_ops_ms": fdense,
-                "bwd_bound_ms": bb, "bwd_bound_by": bby, "bwd_dense_ops_ms": bdense,
-            }
-            row[name] = {"max_abs_err": errs, **times}
-            if dtype == torch.float32:  # one D forward: the act chain and the bare one per site
+            if dtype == torch.float32 and B == B_SLICE:  # one D forward: the act chain and the bare one per site
                 total["fwd_ms"] += times["fwd_act_ms"] + times["fwd_ms"]
                 total["fwd_plain_ms"] += times["fwd_act_plain_ms"] + times["fwd_plain_ms"]
-                total["fwd_bound_ms"] += 2 * fb
+                total["fwd_bound_ms"] += 2 * times["fwd_bound_ms"]
+                total["fwd_library_ms"] += 2 * times["fwd_einsum_ms"]
                 total["bwd_ms"] += times["bwd_ms"]
                 total["bwd_plain_ms"] += times["bwd_plain_ms"]
-                total["bwd_bound_ms"] += bb
-            log("kernels", f"fused_chain {shape} {name}: fwd/bwd match; device ms fwd+act {times['fwd_act_ms']:.4f} "
-                f"(plain {times['fwd_act_plain_ms']:.4f}, K1 + 2 matmuls {times['fwd_act_pair_ms']:.4f}), fwd "
-                f"{times['fwd_ms']:.4f} (plain {times['fwd_plain_ms']:.4f}), bound {fb:.4f} by {fby}, dense products "
-                f"{fdense:.4f}; bwd {times['bwd_ms']:.4f} (plain {times['bwd_plain_ms']:.4f}), bound {bb:.4f} by "
-                f"{bby}, dense products {bdense:.4f}; max abs err {errs}")
+                total["bwd_bound_ms"] += times["bwd_bound_ms"]
+                total["bwd_library_ms"] += times["bwd_adjoint_pair_ms"]
+            log_chain_site(shape, name, times, errs)
         rows.append(row)
+        del x32, g32
     # rectangular operators: the generator's 2x up site and a 2x down; then ragged sizes
     # (no multiple of a tile in any dimension, an odd plane count); f32 and bf16
     for plan_kw, shape in ((dict(up=2), (B_SLICE, 64, 32, 256)), (dict(down=2), (B_SLICE, 32, 64, 512)),
@@ -527,26 +635,28 @@ def check_fused_chain(dev, gen):
     x32, b = torch.randn(2, 3, 40, 100, device=dev, generator=gen), torch.randn(3, device=dev, generator=gen)
     g32 = torch.randn(2, 3, 24, 72, device=dev, generator=gen)
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        hd, wd = hm.to(dtype), wmT.to(dtype)
-        o = ChainOperators(hd, wd, hd.t().contiguous(), wd.t().contiguous())
+        o = operators_from_dense(hm.to(dtype), wmT.to(dtype))
         errs = check_chain_case(x32.to(dtype), b, g32.to(dtype), None, dtype, f"chain dense operators {name}", o)
         if dtype == torch.float32:
             worst["fwd"] = max(worst["fwd"], errs["fwd_act"], errs["fwd"], errs["fwd_transposed"])
             worst["bwd"] = max(worst["bwd"], errs["bwd"])
         log("kernels", f"fused_chain dense random operators (2, 3, 40, 100) -> (24, 72) {name}: fwd/bwd match, max abs err {errs}")
+    nan_rec = check_nan_band(dev, gen)
     torch.cuda.synchronize()
-    common = {"route": "cuda", "source": "dusty_gan_v2_tpu_torch/csrc/fused_chain.cu", "launches": None,
-              "bound_by": "bytes", "library_ms": None}
+    common = {"route": "cuda", "source": "dusty_gan_v2_tpu_torch/csrc/fused_chain.cu", "launches": None, "bound_by": "bytes"}
     k4 = {"name": "fused_chain_fwd", "replaces": "dusty_gan_v2_tpu/ops/fused_chain.py:51", "max_abs_err": worst["fwd"],
-          "ms": total["fwd_ms"], "plain_ms": total["fwd_plain_ms"], "bound_ms": total["fwd_bound_ms"], **common}
+          "ms": total["fwd_ms"], "plain_ms": total["fwd_plain_ms"], "bound_ms": total["fwd_bound_ms"],
+          "library_ms": total["fwd_library_ms"], **common}
     k5 = {"name": "fused_chain_bwd", "replaces": "dusty_gan_v2_tpu/ops/fused_chain.py:104", "max_abs_err": worst["bwd"],
-          "ms": total["bwd_ms"], "plain_ms": total["bwd_plain_ms"], "bound_ms": total["bwd_bound_ms"], **common}
+          "ms": total["bwd_ms"], "plain_ms": total["bwd_plain_ms"], "bound_ms": total["bwd_bound_ms"],
+          "library_ms": total["bwd_library_ms"], **common}
     for row in rows:  # the totals' bound is by bytes only if every site's is
         assert row["f32"]["fwd_bound_by"] == row["f32"]["bwd_bound_by"] == "bytes", row
     log("kernels", f"fused_chain per D forward at B={B_SLICE} f32 (8 launches): {k4['ms']:.4f} ms (plain {k4['plain_ms']:.4f}, "
-        f"bound {k4['bound_ms']:.4f}); per backward (4 launches of the backward kernel): {k5['ms']:.4f} ms "
-        f"(plain {k5['plain_ms']:.4f}, bound {k5['bound_ms']:.4f})")
-    return k4, k5, rows
+        f"einsum of the bare resample at each launch {k4['library_ms']:.4f}, bound {k4['bound_ms']:.4f}); per backward "
+        f"(4 launches of the backward kernel): {k5['ms']:.4f} ms (plain {k5['plain_ms']:.4f}, adjoint pair "
+        f"{k5['library_ms']:.4f}, bound {k5['bound_ms']:.4f})")
+    return k4, k5, {"sites": rows, "nan_band": nan_rec}
 
 
 def phase_slice(dev):
@@ -1003,7 +1113,7 @@ def main():
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
         "kernels": ks, "fused_bias_act_sites": k1_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
-        "evaluate": eval_rec, "rates": rates, "fused_chain_sites": chain_rows, "critic": critic_rec,
+        "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -5,10 +5,19 @@ Counterpart of dusty_gan_v2_tpu/ops/fused_chain.py. The discriminator's block ru
 `bias_act -> blur` on its main path and a bare blur on its skip; unfused, the activation
 is written, the W-pass reads it and writes an intermediate, and the H-pass reads that
 and writes again. Here one kernel reads a plane once, applies the activation, runs both
-dense resample products with the intermediate held on chip, and writes the result.
+resample passes with the intermediate held on chip, and writes the result.
 
     fused_act_resample(x, bias, plan)   resample(leaky_relu(x + bias[c]) * scale, plan)
     fused_resample(x, plan)             resample(x, plan)
+
+Operator forms (`ChainOperators`, built once per plan, shape, device and dtype by
+`chain_operators`): the dense (Ho, H) and (W, Wo) matrices of `resample` and their
+transposes, which the plain versions multiply, and for each pass the padded-row ("ELL")
+form the kernels read: per output index the input indices of its non-zeros, ascending,
+and their values (`Ell`, `ell_rows`). The ring blur, 2x up and 2x down operators have at
+most 4 non-zeros per row and column, so the kernels' work is proportional to the
+non-zeros and bound by the bytes of the planes; a dense operator is an ELL of its full
+width (`operators_from_dense`). `ChainOperators.adjoint` swaps every form at once.
 
 Each dispatches by x's device: a CPU tensor takes the plain version beside the kernel
 (`fused_leaky_relu` and the two matmuls of `resample`, with the same roundings), a CUDA
@@ -27,6 +36,10 @@ raises. The autograd Functions are the same on both devices:
 Roundings, as in the Pallas bodies: bias rounded to x's dtype, activation in float32,
 round, W-pass accumulated in float32, round, H-pass accumulated in float32, round;
 backward: adjoint H-pass, round, adjoint W-pass in float32 times the mask, round.
+
+Non-finite values: the kernels sum only an output's non-zero terms, so a NaN or Inf in
+a plane reaches only the outputs whose band covers it, as in a direct convolution; the
+plain versions' dense products (the CPU route) turn the whole plane NaN (0 * NaN).
 """
 
 from __future__ import annotations
@@ -43,7 +56,7 @@ from .act import fused_leaky_relu
 from .resample import ResamplePlan, _resample_matrices
 
 __all__ = [
-    "ChainOperators", "chain_operators", "fused_act_resample", "fused_resample",
+    "ChainOperators", "Ell", "chain_operators", "ell_rows", "operators_from_dense", "fused_act_resample", "fused_resample",
     "fused_chain_fwd_cuda", "fused_chain_bwd_cuda",
     "fused_act_resample_plain", "fused_resample_plain", "fused_act_resample_bwd_plain",
     "MAX_ROWS", "MAX_COLS",
@@ -55,25 +68,70 @@ SQRT2 = math.sqrt(2.0)
 MAX_ROWS, MAX_COLS = 128, 512
 
 
+class Ell(NamedTuple):
+    """Padded-row ("ELL") form of an (n_out, n_in) operator: for each output index, the
+    input indices of its non-zeros in ascending order (int32) and their values (the
+    operator's dtype), both (n_out, nnz), nnz the largest count over the rows. A shorter
+    row is padded with value 0 at its last index (0 for an empty row): a padding term
+    adds +0 and reads nothing the row does not already read."""
+
+    idx: torch.Tensor
+    val: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return self.idx.shape[1]
+
+
+def ell_rows(m: torch.Tensor) -> Ell:
+    """The ELL form of the rows of m, on m's device."""
+    mc = m.detach().cpu()
+    n_out, n_in = mc.shape
+    nz = mc != 0
+    count = nz.sum(dim=1, keepdim=True)
+    nnz = max(int(count.max()), 1)
+    cols = torch.arange(n_in).expand(n_out, n_in)
+    idx = torch.where(nz, cols, cols + n_in).argsort(dim=1)[:, :nnz]  # non-zeros first, ascending
+    real = nz.gather(1, idx)
+    last = torch.where(count > 0, idx.gather(1, (count - 1).clamp(min=0)), 0)
+    idx = torch.where(real, idx, last)
+    val = torch.where(real, mc.gather(1, idx), torch.zeros((), dtype=mc.dtype))
+    return Ell(idx.to(device=m.device, dtype=torch.int32).contiguous(), val.to(m.device).contiguous())
+
+
 class ChainOperators(NamedTuple):
-    """The dense operators of one resampling on one device, and their transposes:
-    out = hm (Ho, H) @ x (H, W) @ wmT (W, Wo)."""
+    """The operators of one resampling on one device, out = hm (Ho, H) @ x (H, W) @ wmT
+    (W, Wo): dense, with their transposes (the plain versions), and in ELL form as each
+    pass contracts them (the kernels): `hm_ell` per output row of the H-pass (the rows of
+    hm), `wmT_ell` per output column of the W-pass (the columns of wmT), and `hmT_ell`,
+    `wm_ell` the same for the adjoint map."""
 
     hm: torch.Tensor
     wmT: torch.Tensor
     hmT: torch.Tensor
     wm: torch.Tensor
+    hm_ell: Ell
+    wmT_ell: Ell
+    hmT_ell: Ell
+    wm_ell: Ell
 
     @property
     def adjoint(self) -> "ChainOperators":
         """The operators of the transposed map, (Ho, Wo) planes -> (H, W) planes."""
-        return ChainOperators(self.hmT, self.wm, self.hm, self.wmT)
+        return ChainOperators(self.hmT, self.wm, self.hm, self.wmT, self.hmT_ell, self.wm_ell, self.hm_ell, self.wmT_ell)
+
+
+def operators_from_dense(hm: torch.Tensor, wmT: torch.Tensor) -> ChainOperators:
+    """Every form of the chain hm (Ho, H) @ x @ wmT (W, Wo), for any dense operators."""
+    hm, wmT = hm.contiguous(), wmT.contiguous()
+    hmT, wm = hm.t().contiguous(), wmT.t().contiguous()
+    return ChainOperators(hm, wmT, hmT, wm, ell_rows(hm), ell_rows(wm), ell_rows(hmT), ell_rows(wmT))
 
 
 @functools.lru_cache(maxsize=None)
 def chain_operators(plan: ResamplePlan, H: int, W: int, device: torch.device, dtype: torch.dtype) -> ChainOperators:
     Hmat, Wmat = (torch.from_numpy(m).to(device=device, dtype=dtype) for m in _resample_matrices(plan, H, W))
-    return ChainOperators(Hmat.contiguous(), Wmat.t().contiguous(), Hmat.t().contiguous(), Wmat.contiguous())
+    return operators_from_dense(Hmat, Wmat.t())
 
 
 # ------------------------------------------------------------------ plain versions
@@ -100,7 +158,7 @@ def _act_mask(x: torch.Tensor, bias: torch.Tensor, negative_slope: float, scale:
     else scale * slope; from the input, as the backward kernel takes it."""
     acc = _acc(x.dtype)
     pre = x.to(acc) + bias.to(x.dtype).to(acc).reshape(1, -1, 1, 1)
-    return torch.where(pre >= 0, pre.new_tensor(scale), pre.new_tensor(scale * negative_slope))
+    return torch.where(pre >= 0, pre.new_full((), scale), pre.new_full((), scale * negative_slope))
 
 
 def fused_act_resample_bwd_plain(
@@ -118,55 +176,68 @@ def fused_act_resample_bwd_plain(
 
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _FLT, _FLT, _PTR]
-_BWD_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _FLT, _FLT, _PTR]
+_FWD_ARGS = [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR] + [_INT] * 7 + [_FLT, _FLT, _PTR]
+_BWD_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR] + [_INT] * 6 + [_FLT, _FLT, _PTR]
 
 
-def _check_chain_args(name, x, bias, right, left):
-    """x (B, C, rows_in, cols_in) contiguous on a card; `right` (cols_in, cols_out) and
-    `left` (rows_out, rows_in) dense, contiguous, same dtype and device; bias (C,)."""
+def _check_aligned(name, *tensors):
+    """The kernels read their input planes and the ELL rows in 16-byte vectors: a view
+    that starts elsewhere in its storage would fault on the card."""
+    for v in tensors:
+        if v.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte-aligned tensors, got one at storage offset "
+                             f"{v.storage_offset()}: pass a copy")
+
+
+def _check_chain_args(name, x, bias, ops: ChainOperators):
+    """x (B, C, H, W) contiguous and 16-byte aligned on a card, in the planes the operators
+    take; every form of `ops` on x's device in x's dtype (indices int32), contiguous and
+    aligned; bias (C,) or None."""
     if x.ndim != 4 or not x.is_cuda:
         raise ValueError(f"{name} needs a (B, C, H, W) tensor on a CUDA device, got {tuple(x.shape)} on {x.device}")
-    rows_in, cols_in = x.shape[-2:]
     if x.dtype not in _ENTRY:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
-    for t in (right, left) + (() if bias is None else (bias,)):
-        if t.device != x.device:
-            raise ValueError(f"{name} needs every tensor on {x.device}, got one on {t.device}")
-    for m in (right, left):
-        if m.dtype != x.dtype or m.ndim != 2 or not m.is_contiguous():
-            raise ValueError(f"{name} needs contiguous 2-D operators of dtype {x.dtype}")
-    if right.shape[0] != cols_in or left.shape[1] != rows_in:
-        raise ValueError(f"{name}: operators {tuple(left.shape)}, {tuple(right.shape)} do not fit planes {(rows_in, cols_in)}")
-    if max(rows_in, left.shape[0]) > MAX_ROWS or max(cols_in, right.shape[1]) > MAX_COLS:
-        raise ValueError(
-            f"{name} takes planes of at most {MAX_ROWS} x {MAX_COLS} in and out, "
-            f"got {(rows_in, cols_in)} -> {(left.shape[0], right.shape[1])}"
-        )
-    if bias is not None and tuple(bias.shape) != (x.shape[1],):
-        raise ValueError(f"bias {tuple(bias.shape)} does not match channels of {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous input")
+    (Ho, H), (W, Wo) = ops.hm.shape, ops.wmT.shape
+    if tuple(x.shape[-2:]) != (H, W):
+        raise ValueError(f"{name}: operators {(Ho, H)}, {(W, Wo)} do not fit planes {tuple(x.shape[-2:])}")
+    if max(H, Ho) > MAX_ROWS or max(W, Wo) > MAX_COLS:
+        raise ValueError(f"{name} takes planes of at most {MAX_ROWS} x {MAX_COLS} in and out, got {(H, W)} -> {(Ho, Wo)}")
+    for e, n_out in ((ops.hm_ell, Ho), (ops.wmT_ell, Wo), (ops.hmT_ell, H), (ops.wm_ell, W)):
+        if e.idx.dtype != torch.int32 or e.val.dtype != x.dtype or e.idx.shape != e.val.shape or e.idx.shape[0] != n_out:
+            raise ValueError(f"{name} needs ELL forms of dtype {x.dtype} with int32 indices that fit the operators")
+        if not (e.idx.is_contiguous() and e.val.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous ELL forms (the kernel reads their rows as vectors)")
+        if e.idx.device != x.device or e.val.device != x.device:
+            raise ValueError(f"{name} needs every tensor on {x.device}, got one on {e.idx.device}")
+        _check_aligned(name, e.idx, e.val)
+    _check_aligned(name, x)
+    if bias is not None and (tuple(bias.shape) != (x.shape[1],) or bias.device != x.device):
+        raise ValueError(f"bias {tuple(bias.shape)} on {bias.device} does not match {tuple(x.shape)} on {x.device}")
 
 
 def fused_chain_fwd_cuda(
-    x: torch.Tensor, bias: Optional[torch.Tensor], wmT: torch.Tensor, hm: torch.Tensor,
+    x: torch.Tensor, bias: Optional[torch.Tensor], ops: ChainOperators,
     negative_slope: float = 0.2, scale: float = SQRT2,
 ) -> torch.Tensor:
     """Launch the forward kernel on x's current stream; counts its launches.
 
-    x (B, C, H, W); bias (C,) or None (no activation); wmT (W, Wo) and hm (Ho, H) are
-    general dense operators in x's dtype. Returns (B, C, Ho, Wo)."""
-    _check_chain_args("fused_chain_fwd_cuda", x, bias, wmT, hm)
-    (B, C, H, W), Ho, Wo = x.shape, hm.shape[0], wmT.shape[1]
+    x (B, C, H, W); bias (C,) or None (no activation); the kernel reads the operators'
+    ELL forms `ops.wmT_ell` and `ops.hm_ell` (pass `ops.adjoint` for the adjoint map).
+    Returns (B, C, Ho, Wo)."""
+    _check_chain_args("fused_chain_fwd_cuda", x, bias, ops)
+    (B, C, H, W), Ho, Wo = x.shape, ops.hm.shape[0], ops.wmT.shape[1]
     out = torch.empty((B, C, Ho, Wo), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
     b = None if bias is None else bias.to(x.dtype).contiguous()
+    w, h = ops.wmT_ell, ops.hm_ell
     fn = getattr(kernels.library("fused_chain"), f"fused_chain_fwd_{_ENTRY[x.dtype]}")
     fn.argtypes, fn.restype = _FWD_ARGS, ctypes.c_int
     err = fn(
-        x.data_ptr(), None if b is None else b.data_ptr(), wmT.data_ptr(), hm.data_ptr(), out.data_ptr(),
+        x.data_ptr(), None if b is None else b.data_ptr(), w.idx.data_ptr(), w.val.data_ptr(), w.nnz,
+        h.idx.data_ptr(), h.val.data_ptr(), h.nnz, out.data_ptr(),
         B * C, C, H, W, Ho, Wo, int(b is not None), negative_slope, scale,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -179,26 +250,31 @@ fused_chain_fwd_cuda.launches = 0
 
 
 def fused_chain_bwd_cuda(
-    g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, wm: torch.Tensor, hmT: torch.Tensor,
+    g: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, ops: ChainOperators,
     negative_slope: float = 0.2, scale: float = SQRT2,
 ) -> torch.Tensor:
     """Launch the backward kernel on x's current stream; counts its launches.
 
     g (B, C, Ho, Wo) is the gradient of fused_act_resample's output, x (B, C, H, W) its
-    saved input, bias (C,); wm (Wo, W) and hmT (H, Ho) the transposed operators in x's
-    dtype. Returns dx (B, C, H, W); d(bias) is a sum of dx outside."""
-    _check_chain_args("fused_chain_bwd_cuda", g, bias, wm, hmT)
-    (B, C, Ho, Wo), H, W = g.shape, hmT.shape[0], wm.shape[1]
+    saved input, bias (C,), `ops` the forward's operators (the kernel reads the adjoint
+    forms `ops.hmT_ell` and `ops.wm_ell`). Returns dx (B, C, H, W); d(bias) is a sum of dx
+    outside."""
+    if bias is None:
+        raise ValueError("fused_chain_bwd_cuda needs the bias")
+    _check_chain_args("fused_chain_bwd_cuda", g, bias, ops.adjoint)
+    (B, C, Ho, Wo), H, W = g.shape, ops.hm.shape[1], ops.wmT.shape[0]
     if tuple(x.shape) != (B, C, H, W) or x.dtype != g.dtype or x.device != g.device or not x.is_contiguous():
         raise ValueError(f"fused_chain_bwd_cuda: input {tuple(x.shape)} {x.dtype} does not fit gradient {tuple(g.shape)} {g.dtype}")
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
     b = bias.to(x.dtype).contiguous()
+    w, h = ops.wm_ell, ops.hmT_ell
     fn = getattr(kernels.library("fused_chain"), f"fused_chain_bwd_{_ENTRY[x.dtype]}")
     fn.argtypes, fn.restype = _BWD_ARGS, ctypes.c_int
     err = fn(
-        g.data_ptr(), x.data_ptr(), b.data_ptr(), wm.data_ptr(), hmT.data_ptr(), dx.data_ptr(),
+        g.data_ptr(), x.data_ptr(), b.data_ptr(), w.idx.data_ptr(), w.val.data_ptr(), w.nnz,
+        h.idx.data_ptr(), h.val.data_ptr(), h.nnz, dx.data_ptr(),
         B * C, C, H, W, Ho, Wo, scale, scale * negative_slope,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -215,7 +291,7 @@ fused_chain_bwd_cuda.launches = 0
 def _forward(x, bias, ops: ChainOperators, negative_slope, scale):
     """The chain's forward on x's device; bias None means no activation."""
     if x.device.type == "cuda":
-        return fused_chain_fwd_cuda(x.contiguous(), bias, ops.wmT, ops.hm, negative_slope, scale)
+        return fused_chain_fwd_cuda(x.contiguous(), bias, ops, negative_slope, scale)
     if x.device.type != "cpu":
         raise ValueError(f"fused chain: unsupported device {x.device}")
     if bias is None:
@@ -225,7 +301,7 @@ def _forward(x, bias, ops: ChainOperators, negative_slope, scale):
 
 def _backward(g, x, bias, ops: ChainOperators, negative_slope, scale):
     if x.device.type == "cuda":
-        return fused_chain_bwd_cuda(g.contiguous(), x.contiguous(), bias, ops.wm, ops.hmT, negative_slope, scale)
+        return fused_chain_bwd_cuda(g.contiguous(), x.contiguous(), bias, ops, negative_slope, scale)
     if x.device.type != "cpu":
         raise ValueError(f"fused chain: unsupported device {x.device}")
     return fused_act_resample_bwd_plain(g, x, bias, ops.wm, ops.hmT, negative_slope, scale)

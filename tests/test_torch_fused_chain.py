@@ -179,8 +179,116 @@ def test_chain_wrappers_reject_cpu_tensors_and_shapes_outside_the_contract():
     x, b = torch.zeros(1, 2, 8, 16), torch.zeros(2)
     o = tchain.chain_operators(plan, 8, 16, x.device, x.dtype)
     with pytest.raises(ValueError):
-        ops.fused_chain_fwd_cuda(x, b, o.wmT, o.hm)
+        ops.fused_chain_fwd_cuda(x, b, o)
     with pytest.raises(ValueError):
-        ops.fused_chain_bwd_cuda(x, x, b, o.wm, o.hmT)
+        ops.fused_chain_bwd_cuda(x, x, b, o)
     assert tchain.MAX_ROWS == 128 and tchain.MAX_COLS == 512
     assert ops.fused_chain_fwd_cuda.launches == 0 and ops.fused_chain_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 8], ids=lambda k: f"offset{k}")
+def test_chain_wrappers_reject_views_the_kernels_cannot_read_in_vectors(offset, dtype):
+    """The kernels read planes and ELL rows in 16-byte vectors: a contiguous view that
+    starts off that alignment (a slice of a flat buffer) is refused before any launch."""
+    flat = torch.zeros(64 + 2 * 8 * 16, dtype=dtype)
+    view = flat[offset : offset + 2 * 8 * 16].view(1, 2, 8, 16)
+    assert view.is_contiguous()
+    if (offset * flat.element_size()) % 16:
+        with pytest.raises(ValueError, match="aligned"):
+            tchain._check_aligned("fused_chain_fwd_cuda", view)
+    else:
+        tchain._check_aligned("fused_chain_fwd_cuda", view)
+
+
+# ------------------------------------------------------------------ the kernels' operator form
+
+def _dense_random():
+    rng = np.random.RandomState(19)
+    return tchain.operators_from_dense(torch.from_numpy((rng.randn(24, 40) / np.sqrt(40)).astype(np.float32)),
+                                       torch.from_numpy((rng.randn(100, 72) / np.sqrt(100)).astype(np.float32)))
+
+
+# (plan keywords or None for dense random operators, (H, W), nnz of hm_ell, wmT_ell, hmT_ell,
+# wm_ell): the discriminator's four blur sites, the generator's 2x up site, a 2x down, the
+# ragged sizes the card is checked at, and dense random operators (40 x 100 -> 24 x 72)
+ELL_SITES = [
+    (dict(), (64, 512), (4, 4, 4, 4)), (dict(), (32, 256), (4, 4, 4, 4)), (dict(), (16, 128), (4, 4, 4, 4)),
+    (dict(), (8, 64), (4, 4, 4, 4)), (dict(up=2), (32, 256), (2, 2, 4, 4)), (dict(down=2), (64, 512), (4, 4, 2, 2)),
+    (dict(), (6, 12), (4, 4, 4, 4)), (dict(up=2), (23, 70), (2, 2, 4, 4)), (dict(down=2), (46, 140), (4, 4, 2, 2)),
+    (None, (40, 100), (40, 100, 24, 72)),
+]
+ELL_IDS = ["blur-64x512", "blur-32x256", "blur-16x128", "blur-8x64", "up2-32x256", "down2-64x512",
+           "blur-6x12", "up2-23x70", "down2-46x140", "dense-random"]
+
+
+def _site_operators(plan_kw, hw, dtype=torch.float32):
+    if plan_kw is None:
+        o = _dense_random()
+        return tchain.operators_from_dense(o.hm.to(dtype), o.wmT.to(dtype))
+    return tchain.chain_operators(ops.make_resample(window=(1, 3, 3, 1), ring=True, **plan_kw), *hw, torch.device("cpu"), dtype)
+
+
+def _forms(o):
+    """(ELL form, the dense (n_out, n_in) matrix whose rows it holds) of every pass."""
+    return ((o.hm_ell, o.hm), (o.wmT_ell, o.wmT.t()), (o.hmT_ell, o.hmT), (o.wm_ell, o.wm.t()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("plan_kw,hw,nnz", ELL_SITES, ids=ELL_IDS)
+def test_ell_scatters_back_to_the_dense_operator(plan_kw, hw, nnz, dtype):
+    for e, m in _forms(_site_operators(plan_kw, hw, dtype)):
+        assert e.idx.dtype == torch.int32 and e.val.dtype == dtype and e.idx.shape == e.val.shape
+        back = torch.zeros(m.shape, dtype=dtype).scatter_add_(1, e.idx.long(), e.val)
+        assert torch.equal(back, m)
+
+
+@pytest.mark.parametrize("plan_kw,hw,nnz", ELL_SITES, ids=ELL_IDS)
+def test_ell_rows_ascend_and_pad_with_zero_at_a_valid_index(plan_kw, hw, nnz):
+    for e, m in _forms(_site_operators(plan_kw, hw)):
+        real = e.val != 0
+        assert bool((e.idx >= 0).all()) and bool((e.idx < m.shape[1]).all())
+        # the real entries come first and ascend; padding repeats the row's last index
+        assert bool((real[:, :-1] | ~real[:, 1:]).all())
+        step = e.idx[:, 1:] - e.idx[:, :-1]
+        assert bool((step[real[:, 1:]] > 0).all()) and bool((step[~real[:, 1:]] == 0).all())
+        assert torch.equal(real.sum(1), (m != 0).sum(1))
+
+
+@pytest.mark.parametrize("plan_kw,hw,nnz", ELL_SITES, ids=ELL_IDS)
+def test_ell_width_counts_the_non_zeros(plan_kw, hw, nnz):
+    o = _site_operators(plan_kw, hw)
+    assert tuple(e.nnz for e, _ in _forms(o)) == nnz
+    assert tuple(int((m != 0).sum(1).max()) for _, m in _forms(o)) == nnz
+
+
+@pytest.mark.parametrize("plan_kw,hw,nnz", ELL_SITES, ids=ELL_IDS)
+def test_adjoint_swaps_every_form(plan_kw, hw, nnz):
+    o = _site_operators(plan_kw, hw)
+    a = o.adjoint
+    assert a.hm is o.hmT and a.wmT is o.wm and a.hmT is o.hm and a.wm is o.wmT
+    assert a.hm_ell is o.hmT_ell and a.wmT_ell is o.wm_ell and a.hmT_ell is o.hm_ell and a.wm_ell is o.wmT_ell
+    assert all(x is y for x, y in zip(a.adjoint, o))
+
+
+def _ell_apply(e, v):
+    """Along v's last axis: out[..., o] = sum_k val[o, k] * v[..., idx[o, k]], in ascending k."""
+    terms = v[..., e.idx.long()] * e.val
+    out = torch.zeros(terms.shape[:-1], dtype=terms.dtype)
+    for k in range(e.nnz):
+        out = out + terms[..., k]
+    return out
+
+
+@pytest.mark.parametrize("plan_kw,hw,nnz", ELL_SITES, ids=ELL_IDS)
+def test_ell_passes_equal_the_dense_products(plan_kw, hw, nnz):
+    """The kernels' contraction as the forms orient it: the W-pass through wmT_ell along
+    the columns, the H-pass through hm_ell along the rows; the adjoint through hmT_ell
+    first, then wm_ell."""
+    o = _site_operators(plan_kw, hw)
+    (H, W), (Ho, Wo) = hw, (o.hm.shape[0], o.wmT.shape[1])
+    x, g = t(rand(2, 3, H, W, seed=20)), t(rand(2, 3, Ho, Wo, seed=21))
+    fwd = _ell_apply(o.hm_ell, _ell_apply(o.wmT_ell, x).transpose(-1, -2)).transpose(-1, -2)
+    close(fwd, ops.fused_resample_plain(x, o.wmT, o.hm))
+    adj = _ell_apply(o.wm_ell, _ell_apply(o.hmT_ell, g.transpose(-1, -2)).transpose(-1, -2))
+    close(adj, ops.fused_resample_plain(g, o.wm, o.hmT))
