@@ -69,6 +69,7 @@ from dusty_gan_v2_tpu_torch.metrics import (
     build_pointnet, earth_mover_distance, emd_cost, emd_cuda, fps_cuda, furthest_point_sampling,
 )
 from dusty_gan_v2_tpu_torch.metrics.cov_mmd_1nna import _compute_cov_mmd, _compute_nna, _pairwise_distance
+from dusty_gan_v2_tpu_torch.metrics.fps import _fit_cluster
 from dusty_gan_v2_tpu_torch.models import build_discriminator, build_generator
 from dusty_gan_v2_tpu_torch.ops import (
     fused_act_resample, fused_act_resample_bwd_plain, fused_act_resample_plain, fused_bias_act, fused_bias_act_cuda,
@@ -92,6 +93,8 @@ SFU_OPS_PER_S = F32_FLOPS_PER_S / 2 / 128 * 16
 # site (bias_act1), blocks 1-4 two (bias_act1, bias_act2)
 K1_SITES = [((512, 4, 32), 1), ((256, 8, 64), 2), ((128, 16, 128), 2), ((64, 32, 256), 2), ((32, 64, 512), 2)]
 B_SLICE, N_POINTS, K_POINTS = 8, 64 * 512, 2048
+FPS_BATCHES = (B_SLICE, 64, 128)  # the slice, the evaluation's batch, the rates phase's
+EMD_SEEDS = (0, 1, 2)
 B_WIDE = 128  # the batch bench.py times: the widest chain site is timed there too
 # per-sample (C, H, W) of the act -> blur sites of full_disc_cfg(): the input of each
 # residual block, where the main path runs the chain with the activation and the skip
@@ -336,26 +339,63 @@ def check_fused_bias_act(dev, gen):
     return entry, rows
 
 
-def check_fps(dev, gen):
-    xyz = torch.randn(B_SLICE, N_POINTS, 3, device=dev, generator=gen)
-    dropped = torch.rand(B_SLICE, N_POINTS, device=dev, generator=gen) < 0.3
-    xyz[dropped] = 0.0  # dropped rays sit on the origin: many exact distance ties
-    got = fps_cuda(xyz, K_POINTS)
-    ref = furthest_point_sampling(xyz, K_POINTS)
-    mismatch = int((got != ref).sum())
-    assert mismatch == 0, f"K2 indices differ from the plain scan at {mismatch} places"
-    ms = statistics.median(launch_ms(lambda: fps_cuda(xyz, K_POINTS), 5))
-    plain_ms = kernel_ms(lambda: furthest_point_sampling(xyz, K_POINTS), reps=1)
-    nbytes = xyz.numel() * 4 + B_SLICE * K_POINTS * 4
-    flops = 9 * (K_POINTS - 1) * B_SLICE * N_POINTS  # 3 sub, 3 mul, 2 add, 1 min per point and step
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
-    log("kernels", f"fps {B_SLICE}x{N_POINTS}->{K_POINTS}: indices equal the plain scan; {ms:.3f} ms "
-        f"(plain {plain_ms:.3f}, bound {bound_ms:.4f} by operations)")
-    return {
-        "name": "fps", "route": "cuda", "source": "dusty_gan_v2_tpu_torch/csrc/fps.cu",
-        "replaces": "dusty_gan_v2_tpu/metrics/pallas_fps.py:27", "launches": None, "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations", "library_ms": None,
-    }
+def check_fps(dev, gen, smi):
+    """K2 at B = 8 (the slice), 64 (the evaluation's batch) and 128 (the rates phase), 32768
+    -> 2048 points, 30% of them on the origin: indices equal to the plain scan's; ms per
+    launch and per step and the cluster size the launcher chose (CS = 1 is the one-block
+    kernel). At B=8 CS = 1 and the chosen CS in turns, and every CS once; at B=128 a forced
+    CS = 2, which runs in two waves."""
+    rows, entry = [], None
+    for B in FPS_BATCHES:
+        xyz = torch.randn(B, N_POINTS, 3, device=dev, generator=gen)
+        dropped = torch.rand(B, N_POINTS, device=dev, generator=gen) < 0.3
+        xyz[dropped] = 0.0  # dropped rays sit on the origin: many exact distance ties
+        got = fps_cuda(xyz, K_POINTS)
+        chosen = _fit_cluster(xyz.device.index, B, N_POINTS)
+        ref = furthest_point_sampling(xyz, K_POINTS)
+        mismatch = int((got != ref).sum())
+        assert mismatch == 0, f"K2 indices differ from the plain scan at {mismatch} places, B={B}"
+        ms = statistics.median(launch_ms(lambda: fps_cuda(xyz, K_POINTS), 5))
+        row = {"batch": B, "cluster": chosen, "ms": ms, "us_per_step": 1e3 * ms / (K_POINTS - 1), "device": smi}
+        if B == B_SLICE:
+            turns = []
+            for cs in (1, chosen, chosen, 1):
+                assert torch.equal(fps_cuda(xyz, K_POINTS, cluster=cs), ref), f"K2 with CS={cs} differs"
+                turns.append({"cluster": cs, "ms": statistics.median(launch_ms(lambda: fps_cuda(xyz, K_POINTS, cluster=cs), 3))})
+            by_cs = {}
+            for cs in (2, 4, 8, 16):
+                assert torch.equal(fps_cuda(xyz, K_POINTS, cluster=cs), ref), f"K2 with CS={cs} differs"
+                by_cs[cs] = statistics.median(launch_ms(lambda: fps_cuda(xyz, K_POINTS, cluster=cs), 3))
+            one = statistics.mean(t["ms"] for t in turns if t["cluster"] == 1)
+            best = statistics.mean(t["ms"] for t in turns if t["cluster"] == chosen)
+            row.update(turns=turns, ms_by_cluster=by_cs, speedup_over_cs1=one / best)
+            plain_ms = kernel_ms(lambda: furthest_point_sampling(xyz, K_POINTS), reps=1)
+            nbytes = xyz.numel() * 4 + B * K_POINTS * 4
+            flops = 9 * (K_POINTS - 1) * B * N_POINTS  # 3 sub, 3 mul, 2 add, 1 min per point and step
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+            entry = {
+                "name": "fps", "route": "cuda", "source": "dusty_gan_v2_tpu_torch/csrc/fps.cu",
+                "replaces": "dusty_gan_v2_tpu/metrics/pallas_fps.py:27", "launches": None, "max_abs_err": 0.0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations", "library_ms": None,
+            }
+            row.update(plain_ms=plain_ms, bound_ms=bound_ms)
+        if B == FPS_BATCHES[-1]:
+            assert torch.equal(fps_cuda(xyz, K_POINTS, cluster=2), ref), "K2 with CS=2 differs at B=128"
+            row["forced_cluster2_ms"] = statistics.median(launch_ms(lambda: fps_cuda(xyz, K_POINTS, cluster=2), 3))
+        rows.append(row)
+        log("kernels", f"fps {B}x{N_POINTS}->{K_POINTS} on {smi}: indices equal the plain scan; CS {chosen}, "
+            f"{ms:.3f} ms per launch, {row['us_per_step']:.3f} us per step"
+            + (f"; in turns (CS, ms) {[(t['cluster'], round(t['ms'], 3)) for t in row['turns']]}, "
+               f"{row['speedup_over_cs1']:.2f}x over CS = 1; ms by CS {by_cs}; plain {plain_ms:.3f}, bound {bound_ms:.4f} by operations"
+               if B == B_SLICE else "")
+            + (f"; forced CS = 2 (two waves) {row['forced_cluster2_ms']:.3f} ms" if "forced_cluster2_ms" in row else ""))
+        del xyz, dropped
+    # the cluster kernel against the one-block kernel in turns on this card; B=128 keeps
+    # the one-block kernel (two waves of clusters are not chosen)
+    assert rows[0]["speedup_over_cs1"] >= 2.0, rows[0]
+    assert rows[-1]["cluster"] == 1, rows[-1]
+    return entry, rows
+
 
 def plain_emd(x, y):
     """The plain version over many pairs, PLAIN_CHUNK at a time."""
@@ -377,30 +417,49 @@ def emd_bound_ms(pairs, n, m):
     return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def check_emd(dev, gen):
+def emd_sets(dev, seeds):
+    """{kind + seed: (x, y)}: PAIRWISE_BATCH pairs of K_POINTS-point clouds a set, uniform in
+    the unit cube and with 30% of the points on the origin, from a generator of their own
+    per seed (scripts/torch_emd_kernel_variants.py draws the same sets)."""
+    sets = {}
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for kind in ("uniform", "origin30"):
+            x = torch.rand(PAIRWISE_BATCH, K_POINTS, 3, device=dev, generator=gen)
+            y = torch.rand(PAIRWISE_BATCH, K_POINTS, 3, device=dev, generator=gen)
+            if kind == "origin30":  # dropped rays sit on the origin: d = 0 and K = 1 at every level
+                x[torch.rand(PAIRWISE_BATCH, K_POINTS, device=dev, generator=gen) < 0.3] = 0.0
+                y[torch.rand(PAIRWISE_BATCH, K_POINTS, device=dev, generator=gen) < 0.3] = 0.0
+            sets[f"{kind}{seed}"] = (x, y)
+    return sets
+
+
+def check_emd(dev, smi):
+    """K3 against the plain version on six sets of 256 pairs of 2048 x 2048 points (seeds
+    0-2, both kinds), 1e-5 relative per pair; ms per launch on the seed-0 sets."""
     n = K_POINTS
     worst, rows, ms_by_kind = 0.0, {}, {}
-    for kind in ("origin30", "uniform"):
-        x = torch.rand(PAIRWISE_BATCH, n, 3, device=dev, generator=gen)
-        y = torch.rand(PAIRWISE_BATCH, n, 3, device=dev, generator=gen)
-        if kind == "origin30":  # dropped rays sit on the origin: d = 0 and K = 1 at every level
-            x[torch.rand(PAIRWISE_BATCH, n, device=dev, generator=gen) < 0.3] = 0.0
-            y[torch.rand(PAIRWISE_BATCH, n, device=dev, generator=gen) < 0.3] = 0.0
+    for tag, (x, y) in emd_sets(dev, EMD_SEEDS).items():
         got, ref = emd_cuda(x, y), plain_emd(x, y)
         torch.cuda.synchronize()
-        assert bool(torch.isfinite(got).all()) and bool((ref > 0).all()), kind
+        assert bool(torch.isfinite(got).all()) and bool((ref > 0).all()), tag
         rel = float(((got - ref).abs() / ref).max())
-        assert rel <= 1e-5, f"K3 differs from the plain version on {kind} clouds: max relative error {rel}"
-        rows[kind] = rel
+        assert rel <= 1e-5, f"K3 differs from the plain version on set {tag}: max relative error per pair {rel}"
+        rows[tag] = rel
         worst = max(worst, rel)
-        ms_by_kind[kind] = launch_ms(lambda: emd_cuda(x, y), 5)
-        clocks = smi_clocks()
+        if tag.endswith("0"):
+            kind = tag[:-1]
+            ms_by_kind[kind] = launch_ms(lambda: emd_cuda(x, y), 5)
+            if kind == "uniform":
+                uniform = (x, y)
+    clocks = smi_clocks()
     # the plain version is timed on the same (uniform) clouds
+    x, y = uniform
     ms = statistics.median(ms_by_kind["uniform"])
     # 8 chunks of large back-to-back kernels: the CUDA-event time is the device's
     plain_ms = cuda_ms(lambda: plain_emd(x, y), reps=1, repeats=3)
     bound_ms, bound_by = emd_bound_ms(PAIRWISE_BATCH, n, n)
-    log("kernels", f"emd {PAIRWISE_BATCH} pairs x {n} x {n}: max relative error per pair {rows} (bar 1e-5); "
+    log("kernels", f"emd {PAIRWISE_BATCH} pairs x {n} x {n} on {smi}: max relative error per pair {rows} (bar 1e-5); "
         f"{ms:.3f} ms per launch (plain {plain_ms:.3f}, bound {bound_ms:.3f} by {bound_by}); "
         f"single launches min/median/max " + ", ".join(
             f"{k} {min(v):.3f}/{statistics.median(v):.3f}/{max(v):.3f}" for k, v in ms_by_kind.items())
@@ -410,7 +469,7 @@ def check_emd(dev, gen):
         "replaces": "dusty_gan_v2_tpu/metrics/pallas_emd.py:41", "launches": None, "max_abs_err": worst,
         "err_kind": "max relative error per pair", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-    }, {"max_rel_err": rows, "launch_ms": ms_by_kind, "clocks_after": clocks}
+    }, {"max_rel_err": rows, "launch_ms": ms_by_kind, "clocks_after": clocks, "device": smi}
 
 
 def chain_tol(ref, dtype, inter=None, second=None):
@@ -714,7 +773,7 @@ def plain_matrices(p1, p2):
     return {"cd": torch.cat(cd).reshape(B1, B2).cpu().numpy(), "emd": emd.reshape(B1, B2).cpu().numpy()}
 
 
-def phase_evaluate(G_cpu, dev):
+def phase_evaluate(G_cpu, dev, smi):
     G = copy.deepcopy(G_cpu).to(dev)
     G_ref = build_generator(full_gen_cfg(), device=dev, seed=1)
     pointnet = build_pointnet(dev, seed=0)
@@ -793,7 +852,7 @@ def phase_evaluate(G_cpu, dev):
     rates = {m: n_pairs / times[f"1nna-{m}"] for m in ("cd", "emd", "dcd")}
     log("evaluate", f"self-EMD max {diag:.3g}; {N_SUBSET}-cloud subset: EMD max relative error per pair "
         f"{emd_rel:.3g}, score error vs plain {score_err:.3g}; K3 on the slice's clouds {own_ms:.3f} ms per "
-        f"{PAIRWISE_BATCH}-pair launch; pairs/s " + ", ".join(f"{m} {r:.0f}" for m, r in rates.items()))
+        f"{PAIRWISE_BATCH}-pair launch; pairs/s " + ", ".join(f"{m} {r:.0f}" for m, r in rates.items()) + f"; on {smi}")
     return launches, {
         "clouds_per_set": N_CLOUDS, "points": K_POINTS, "pairwise_batch": PAIRWISE_BATCH, "reference_set": "stand-in",
         "stage_s": times, "scores": scores, "launches": launches, "plain_route": plain_route,
@@ -802,7 +861,7 @@ def phase_evaluate(G_cpu, dev):
     }
 
 
-def phase_rates(G_cpu, dev):
+def phase_rates(G_cpu, dev, smi):
     angle = load_angle()
     coord = make_coord_bridge(angle)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -837,7 +896,7 @@ def phase_rates(G_cpu, dev):
             log("rates", f"{compute_dtype} B={B}: sample {gen_ms:.3f} ms/batch = {rec['samples_per_s']:.1f} "
                 f"samples/s; sample+FPS {slice_ms:.3f} ms = {rec['sample_fps_per_s']:.1f} samples/s; "
                 f"peak {rec['peak_mem_gib']:.2f} GiB; device {dev_ms} ms per sample call, idle share "
-                f"{rec['device_idle_share']}")
+                f"{rec['device_idle_share']}; on {smi}")
             log("rates", f"  top device ms per sample call: " + "; ".join(f"{n[:60]} {t:.3f}" for n, t in top))
         del G
     return rates
@@ -1096,14 +1155,14 @@ def main():
     build_s, reports = phase_build()
     gen = torch.Generator(device=dev).manual_seed(0)
     k1, k1_rows = check_fused_bias_act(dev, gen)
-    k2 = check_fps(dev, gen)
-    k3, k3_rows = check_emd(dev, gen)
+    k2, k2_rows = check_fps(dev, gen, smi)
+    k3, k3_rows = check_emd(dev, smi)
     k4, k5, chain_rows = check_fused_chain(dev, gen)
     G_cpu, launches, slice_rec, x_fake = phase_slice(dev)
     k1["launches"], k2["launches"] = launches["fused_bias_act"], launches["fps"]
-    eval_launches, eval_rec = phase_evaluate(G_cpu, dev)
+    eval_launches, eval_rec = phase_evaluate(G_cpu, dev, smi)
     k3["launches"] = eval_launches["emd"]
-    rates = phase_rates(G_cpu, dev)
+    rates = phase_rates(G_cpu, dev, smi)
     D_cpu, critic_launches, critic_rec = phase_critic(x_fake, dev)
     k4["launches"], k5["launches"] = critic_launches["fused_chain_fwd"], critic_launches["fused_chain_bwd"]
     critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
@@ -1112,7 +1171,7 @@ def main():
     record = {
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
-        "kernels": ks, "fused_bias_act_sites": k1_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
+        "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates,
     }

@@ -6,7 +6,8 @@ waits for every one. Libraries go to ``dusty_gan_v2_tpu_torch/_build/`` (git-ign
 under a name that hashes the source and its flags, so an edited source is rebuilt and
 an unchanged one is reused. Each source has its own flags (NVCC_FLAGS): fps.cu must not
 contract a*b+c to FMA or its indices drift from the plain scan's, emd.cu pins the
-rounding of its distance with intrinsics and lets the compiler fuse the rest, as does
+rounding of its distance with intrinsics, writes its approximate square root as PTX in
+the source (no fast-math flag) and lets the compiler fuse the rest, as does
 fused_chain.cu for its activation while its products accumulate with FMA. Nothing
 is built at import: the first kernel launch (or an explicit ``build_all()``) triggers
 the build.
@@ -38,7 +39,8 @@ NVCC_FLAGS = {
 SOURCES = tuple(NVCC_FLAGS)
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler."""
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
@@ -57,14 +59,14 @@ def build_all() -> dict:
 
     Returns {source name: ptxas report} (empty for a library already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc_bin = nvcc()
     procs = {}
     for name in SOURCES:
         target = _target(name)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_bin, *NVCC_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,

@@ -40,8 +40,6 @@ def emd_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
 
     xyz1 (B, n, 3), xyz2 (B, m, 3), float32 on one CUDA device -> (B,) costs with the
     semantics of earth_mover_distance. One block works on one pair."""
-    if not (xyz1.is_cuda and xyz2.is_cuda) or xyz1.device != xyz2.device:
-        raise ValueError("emd_cuda needs two tensors on one CUDA device")
     for t in (xyz1, xyz2):
         if t.dtype != torch.float32 or t.ndim != 3 or t.shape[-1] != 3:
             raise ValueError(f"emd_cuda takes float32 (B, N, 3), got {t.dtype} {tuple(t.shape)}")
@@ -51,6 +49,8 @@ def emd_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"emd_cuda: batch sizes differ, {B} and {xyz2.shape[0]}")
     if not emd_cuda_available(n, m):
         raise ValueError(f"emd_cuda takes n + m <= {MAX_POINTS_SUM}, got n={n} m={m}")
+    if not (xyz1.is_cuda and xyz2.is_cuda) or xyz1.device != xyz2.device:
+        raise ValueError("emd_cuda needs two tensors on one CUDA device")
     lib = kernels.library("emd")
     lib.emd_f32.argtypes, lib.emd_f32.restype = _C_ARGS, ctypes.c_int
     xyz1, xyz2 = xyz1.contiguous(), xyz2.contiguous()

@@ -212,7 +212,9 @@ def test_port_rule_covers_the_evaluation_modules():
 
 def test_nvcc_flags_are_per_source():
     """fps.cu's index parity needs --fmad=false (and fused_bias_act keeps the flags it
-    was built with); emd.cu pins its distance with intrinsics and leaves FMA on."""
+    was built with); emd.cu pins its distance with intrinsics and leaves FMA on, takes
+    expf for its exponential and the cost's square root as an approximate PTX instruction
+    written in the source (no fast-math flag changes anything else in it)."""
     from dusty_gan_v2_tpu_torch.kernels import NVCC_FLAGS
 
     with_fmad_off = ("-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false "
@@ -221,6 +223,7 @@ def test_nvcc_flags_are_per_source():
     assert " ".join(NVCC_FLAGS["emd"]) == with_fmad_off.replace(" --fmad=false", "")
     assert NVCC_FLAGS["fused_chain"] == NVCC_FLAGS["emd"]  # pins its activation, FMA in its products
     emd_src = (PORT_ROOT / "csrc" / "emd.cu").read_text()
-    for needle in ("__fmul_rn", "__fadd_rn", "__fsub_rn", "expf(", "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+    for needle in ("__fmul_rn", "__fadd_rn", "__fsub_rn", "expf(", "sqrt.approx.f32",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert needle in emd_src, needle
     assert "__expf" not in emd_src and "use_fast_math" not in " ".join(NVCC_FLAGS["emd"])
