@@ -42,6 +42,21 @@
 8. critic rates: ms and imgs/s of the D forward, d_phase_loss forward + backward and
    r1_penalty forward + double backward at B=32 fp32 and B=128 bf16, and the four-block
    trunk with the chain kernels against the same trunk from the unfused pair.
+9. train: the training step through training/trainer.py's Trainer only, full width and
+   depth (full_train_cfg(): configs/gans/dusty_v2_bf16.yaml and dusty_v2.yaml, seeded
+   weights, synthetic depth batches as bench.py builds them). Each step variant the
+   configs reach runs once at bf16 B=128 (iteration 0: warmup + R1 + ADA; 4, 1,
+   1,000,000, 1,000,004 and 1,000,003, bench.py's steady step) and the launch counters
+   show K1, K4 and K5 on it (39 / 36 / 12 a step, 46 / 60 / 20 with R1). One fp32 B=4
+   step (R1 + ADA + warmup) from a state whose Adam moments are populated runs on the
+   card and on the CPU on the same replayed draws: the adversarial losses and D outputs
+   within 1e-4; R1's penalty and each phase's gradients before the optimizer within 1e-2
+   of their largest magnitude, or within twice the shift one ulp in the weights causes to
+   that phase on the CPU where that is larger; G's buffers and the ADA state 1e-4; on the
+   card, G's update is Adam's on its moments and the EMA e d + p (1 - d). The bf16 B=128 steady
+   step stays within bf16 precision of the fp32 one. Then the rates: ms per step and
+   imgs/s at bf16 B=128 and fp32 B=32 (TF32 off, and allowed), the R1 step, device ms by
+   kernel, idle share, peak GiB.
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
@@ -78,9 +93,10 @@ from dusty_gan_v2_tpu_torch.ops import (
 )
 from dusty_gan_v2_tpu_torch.ops.fused_chain import chain_operators, operators_from_dense
 from dusty_gan_v2_tpu_torch.sampling import (
-    full_disc_cfg, full_gen_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample,
+    full_disc_cfg, full_gen_cfg, full_train_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample,
 )
-from dusty_gan_v2_tpu_torch.training import d_phase_loss, g_phase_loss, r1_penalty
+from dusty_gan_v2_tpu_torch.parallel import PerSampleStream, ReplayStream
+from dusty_gan_v2_tpu_torch.training import Trainer, d_phase_loss, g_phase_loss, r1_penalty
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and non-tensor-core f32 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -1149,6 +1165,317 @@ def phase_critic_rates(D_cpu, G_cpu, dev):
     return rates
 
 
+# the training step: iteration -> (do_r1, do_ada, skip_warmup) under full_train_cfg (lazy gp 16,
+# ada 4; warmup fades over 200 kimg), the six variants the configs reach
+TRAIN_VARIANTS = {0: (True, True, False), 4: (False, True, False), 1: (False, False, False),
+                  1_000_000: (True, True, True), 1_000_004: (False, True, True), 1_000_003: (False, False, True)}
+STEADY_IT = 1_000_003  # bench.py's step: past the warmup fade, off the lazy cadence; it adds 48 a step
+# launches a step: a G forward has 9 bias-act sites; a D forward (chain route) 7 K1 + 8 K4
+# and its backward 4 K4 + 4 K5. G phase: G + D forward, D's input backward; D phase: G
+# forward, two D forwards and backwards; R1: 7 K1, 24 K4, 8 K5 (the critic phase's count)
+STEP_LAUNCHES = {False: {"fused_bias_act": 39, "fused_chain_fwd": 36, "fused_chain_bwd": 12},
+                 True: {"fused_bias_act": 46, "fused_chain_fwd": 60, "fused_chain_bwd": 20}}
+
+
+class RecordingStream(PerSampleStream):
+    """A PerSampleStream that keeps what it draws, in the form a ReplayStream hands out
+    (Bernoulli draws as their uniforms, logistic noise as the noise)."""
+
+    def __init__(self, n, generator, device, log=None):
+        super().__init__(n, generator, device)
+        self.log = [] if log is None else log
+
+    def with_batch(self, n):
+        return RecordingStream(n, self.generator, self.device, self.log)
+
+    def _keep(self, t):
+        self.log.append(t.detach().cpu().numpy())
+        return t
+
+    def normal(self, shape=(), dtype=torch.float32):
+        return self._keep(super().normal(shape, dtype))
+
+    def uniform(self, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):
+        return self._keep(super().uniform(shape, dtype, minval, maxval))
+
+    def randint(self, shape=(), minval=0, maxval=2, dtype=torch.int32):
+        return self._keep(super().randint(shape, minval, maxval, dtype))
+
+    def logistic(self, shape=(), dtype=torch.float32, eps=1e-7):
+        u = PerSampleStream.uniform(self, shape, dtype, eps, 1.0 - eps)
+        return self._keep(torch.log(u) - torch.log1p(-u))
+
+
+def train_batch(tr, seed):
+    """Synthetic depth (m) + mask for tr's batch, as bench.py::_gan_train_rate feeds the step."""
+    rng = np.random.RandomState(seed)
+    shape = (tr.batch_size, 1, *tr.resolution)
+    return {"depth": torch.from_numpy(rng.uniform(2.0, 79.0, shape).astype(np.float32)).to(tr.device),
+            "mask": torch.from_numpy((rng.rand(*shape) > 0.1).astype(np.float32)).to(tr.device)}
+
+
+def record_draws(tr, st, batch, it):
+    """The draws of one step, taken on a copy of the state (the state is not touched)."""
+    rec = RecordingStream(tr.batch_size, tr.generator, tr.device)
+    tr.step(copy.deepcopy(st), batch, it, draws=rec)
+    return rec.log
+
+
+def state_to_cpu(st):
+    """A CPU copy of a TrainState (modules, Adam moments, ADA state)."""
+    st = copy.deepcopy(st)
+    for net in (st.G, st.G_ema, st.D):
+        net.to("cpu")  # in place: the optimizers keep their parameters
+    for opt in (st.opt_G, st.opt_D):
+        for pst in opt.state.values():
+            for k, v in pst.items():
+                if torch.is_tensor(v):
+                    pst[k] = v.cpu()
+    st.ada = type(st.ada)(p=st.ada.p.cpu(), sign_cum=st.ada.sign_cum.cpu(), n_pred_cum=st.ada.n_pred_cum.cpu())
+    st.pl_ema = st.pl_ema.cpu()
+    return st
+
+
+def phase_recorder(out):
+    """on_phase hook: each phase's values and its network's gradients, on the host."""
+    def hook(name, st, values):
+        net = st.G if name == "g" else st.D
+        out[name] = ({k: v.detach().float().cpu() for k, v in values.items()}, grads_of(net))
+    return hook
+
+
+def flat_state(st):
+    return {f"{n}.{k}": v.detach().float().cpu().clone() for n in ("G", "G_ema", "D")
+            for k, v in getattr(st, n).state_dict().items()}
+
+
+def ulp(t):
+    return torch.nextafter(t.abs(), torch.full_like(t, math.inf)) - t.abs()
+
+
+def adam_formula_err(opt, net, old, new):
+    """G's update (one Adam step this iteration) against optax's formula on the same
+    moments, in float64: max over tensors, relative to the largest update, each element
+    allowed 2 ulps of its stored value."""
+    g = opt.param_groups[0]
+    (b1, b2), lr, eps = g["betas"], g["lr"], g["eps"]
+    worst = 0.0
+    for k, prm in net.named_parameters():
+        pst = opt.state[prm]
+        t = float(pst["step"])
+        mu, nu = pst["exp_avg"].double().cpu(), pst["exp_avg_sq"].double().cpu()
+        upd = -lr * (mu / (1 - b1**t)) / ((nu / (1 - b2**t)).sqrt() + eps)
+        d = new[f"G.{k}"].double() - old[f"G.{k}"].double()
+        excess = float(((d - upd).abs() - 2 * ulp(new[f"G.{k}"]).double()).clamp(min=0).max())
+        worst = max(worst, excess / float(upd.abs().max()))
+    return worst
+
+
+def update_err(new, ref, old, keys):
+    """max over keys of max |(new - old) - (ref - old)| / max |ref - old|, each element
+    allowed 2 ulps of its stored float32 value first."""
+    worst = 0.0
+    for k in keys:
+        d_ref, d_new = ref[k] - old[k], new[k] - old[k]
+        excess = float((d_new - d_ref).abs().sub(2 * ulp(ref[k])).clamp(min=0).max())
+        worst = max(worst, excess / max(float(d_ref.abs().max()), 1e-30))
+    return worst
+
+
+def train_card_vs_cpu(dev):
+    """One fp32 B=4 step, R1 + ADA + warmup, on the card and on the CPU from the same
+    state (two steps old, so Adam's moments are populated) on the same draws."""
+    cfg = full_train_cfg(False)
+    cfg["training"]["batch_size"] = 4
+    it = 32  # R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations)
+    tr = Trainer(cfg, device=dev, seed=7)
+    st = tr.init_state(seed=3)
+    batch = train_batch(tr, 1)
+    for pre in (30, 31):
+        tr.step(st, batch, pre)
+    assert tr.schedule(it)[2:5] == (False, True, True)
+    draws = record_draws(tr, st, batch, it)
+    tr_cpu = Trainer(cfg, device="cpu", angle=tr.angle.cpu(), seed=7)
+    st_cpu = state_to_cpu(st)
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    st_ulp = state_to_cpu(st)
+    with torch.no_grad():
+        for net in (st_ulp.G, st_ulp.D):
+            for prm in net.parameters():
+                prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    old, old_ulp, old_card = flat_state(st_cpu), flat_state(st_ulp), flat_state(st)
+
+    runs = {}
+    t0 = time.perf_counter()
+    for name, (t, s, b, d) in {"card": (tr, st, batch, dev), "cpu": (tr_cpu, st_cpu, batch_cpu, "cpu"),
+                               "cpu_ulp": (tr_cpu, st_ulp, batch_cpu, "cpu")}.items():
+        phases = {}
+        rs = ReplayStream(draws, device=d)
+        metrics = t.step(s, b, it, draws=rs, on_phase=phase_recorder(phases))
+        assert rs.remaining == 0, name
+        runs[name] = (phases, {k: float(v) for k, v in metrics.items()}, s)
+    cpu_s = time.perf_counter() - t0
+    (ph, m, _), (ph_cpu, m_cpu, _), (ph_ulp, _, _) = runs["card"], runs["cpu"], runs["cpu_ulp"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+    value_err = {k: rel(m[k], m_cpu[k]) for k in ("loss/G/adversarial", "loss/D/adversarial")}
+    value_err["d_outputs"] = max(float((ph["d"][0][k] - ph_cpu["d"][0][k]).abs().max()) for k in ("y_real", "y_fake"))
+    # R1's penalty is a sum of squared input gradients: it is held to the gradients' bar
+    penalty_err = rel(m["loss/D/gradient_penalty"], m_cpu["loss/D/gradient_penalty"])
+    grad_err = {f"{n}_phase": rel_max_err(ph[n][1], ph_cpu[n][1]) for n in ("g", "d", "r1")}
+    one_ulp = {f"{n}_phase": rel_max_err(ph_ulp[n][1], ph_cpu[n][1]) for n in ("g", "d", "r1")}
+    # a phase's bar is 1e-2 of its gradients' largest magnitude (the D side's), or twice the
+    # shift one ulp in every weight causes to the same phase on the CPU where that is
+    # larger: R1's gradients at B=4 follow leaky-ReLU masks that flip within rounding, and
+    # in some runs one ulp moves them by more than 1e-2
+    grad_bar = {k: max(1e-2, 2 * one_ulp[k]) for k in grad_err}
+    new, new_cpu, new_ulp = flat_state(st), flat_state(st_cpu), flat_state(runs["cpu_ulp"][2])
+    bufs = [k for k in new_cpu if k.startswith("G") and k.endswith(("w_avg", "ema_var"))]
+    buf_err = max(float((new[k] - new_cpu[k]).abs().max() / new_cpu[k].abs().max()) for k in bufs)
+    ada_err = max(abs(float(a) - float(b)) for a, b in zip(
+        (st.ada.p, st.ada.sign_cum, st.ada.n_pred_cum), (st_cpu.ada.p, st_cpu.ada.sign_cum, st_cpu.ada.n_pred_cum)))
+    # on the card's own numbers: G's update is Adam's on its moments, the EMA is
+    # e * d + p * (1 - d) in float32 (both within 2 ulps of the stored values)
+    adam_err = adam_formula_err(st.opt_G, st.G, old_card, new)
+    d32 = np.float32(tr.schedule(it).ema_decay)
+    ema_ok = all(
+        bool(((new[f"G_ema.{k}"] - (old_card[f"G_ema.{k}"] * float(d32) + new[f"G.{k}"] * float(np.float32(1) - d32)))
+              .abs() <= 2 * ulp(new[f"G_ema.{k}"])).all())
+        for k, _ in st.G.named_parameters()
+    )
+    # updates against the CPU's, beside what one ulp in the weights does to them: Adam
+    # divides each gradient by the root of a second moment that is small after two steps
+    keys = {n: [f"{n}.{k}" for k, _ in getattr(st, "G" if n == "G_ema" else n).named_parameters()]
+            for n in ("G", "D", "G_ema")}
+    upd_err = {n: update_err(new, new_cpu, old, ks) for n, ks in keys.items()}
+    upd_ulp = {n: update_err({k: new_ulp[k] - old_ulp[k] + old[k] for k in ks}, new_cpu, old, ks) for n, ks in keys.items()}
+    log("train", f"card vs CPU, fp32 B=4 step at iteration {it} (CPU steps {cpu_s:.1f} s): adversarial losses (relative) "
+        f"and D outputs (abs) {value_err} (bar 1e-4); R1 penalty {penalty_err:.3g} relative and phase gradients' max abs "
+        f"err over the largest magnitude {grad_err} (bars {grad_bar}: 1e-2, or twice the shift of the CPU against "
+        f"itself with every weight one ulp up, {one_ulp}); G buffers {buf_err:.3g} of their largest (bar 1e-4); ADA state {ada_err:.3g} (bar 1e-4); on the "
+        f"card G's update is Adam's on its moments within {adam_err:.3g} of the largest (bar 1e-4), the EMA "
+        f"e d + p (1 - d) within 2 ulps: {ema_ok}; parameter and EMA updates against the CPU's {upd_err}, one ulp's "
+        f"{upd_ulp} (measured); metrics {m}")
+    assert all(e <= 1e-4 for e in value_err.values()), value_err
+    assert penalty_err <= 1e-2 and all(grad_err[k] <= grad_bar[k] for k in grad_err), (penalty_err, grad_err, grad_bar)
+    assert buf_err <= 1e-4 and ada_err <= 1e-4 and adam_err <= 1e-4 and ema_ok, (buf_err, ada_err, adam_err, ema_ok)
+    return {"iteration": it, "value_err": value_err, "penalty_err": penalty_err, "grad_err": grad_err,
+            "one_ulp_grad_shift": one_ulp, "grad_bar": grad_bar, "buffer_err": buf_err, "ada_err": ada_err, "adam_formula_err": adam_err,
+            "update_err": upd_err, "one_ulp_update_shift": upd_ulp, "metrics": m, "cpu_steps_s": cpu_s}
+
+
+def train_bf16_vs_fp32(dev):
+    """bench.py's steady step at B=128, bf16 against fp32, same weights and draws."""
+    out, draws = {}, None
+    for dtype, bf16 in (("bfloat16", True), ("float32", False)):
+        cfg = full_train_cfg(bf16)
+        cfg["training"]["batch_size"] = 128
+        tr = Trainer(cfg, device=dev, seed=7)
+        st = tr.init_state(seed=3)
+        batch = train_batch(tr, 2)
+        if draws is None:
+            draws = record_draws(tr, st, batch, STEADY_IT)
+        phases = {}
+        m = tr.step(st, batch, STEADY_IT, draws=ReplayStream(draws, device=dev), on_phase=phase_recorder(phases))
+        out[dtype] = ({k: float(v) for k, v in m.items()}, phases)
+        del tr, st
+        torch.cuda.empty_cache()
+    (m16, ph16), (m32, ph32) = out["bfloat16"], out["float32"]
+    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    errs = {
+        "y_real": rel_l2(ph16["d"][0]["y_real"], ph32["d"][0]["y_real"]),
+        "y_fake": rel_l2(ph16["d"][0]["y_fake"], ph32["d"][0]["y_fake"]),
+        "loss_G": abs(m16["loss/G/adversarial"] - m32["loss/G/adversarial"]) / abs(m32["loss/G/adversarial"]),
+        "loss_D": abs(m16["loss/D/adversarial"] - m32["loss/D/adversarial"]) / abs(m32["loss/D/adversarial"]),
+    }
+    grads = {n: rel_l2(torch.cat([g.flatten() for g in ph16[n][1].values()]),
+                       torch.cat([g.flatten() for g in ph32[n][1].values()])) for n in ("g", "d")}
+    finite = all(bool(torch.isfinite(g).all()) for n in ("g", "d") for g in ph16[n][1].values())
+    log("train", f"bf16 B=128 against fp32 B=128, steady step, same weights and draws: relative L2 of D's outputs "
+        f"and relative loss differences {errs} (bar 0.15, the critic phase's), of the phase gradients {grads}; "
+        f"bf16 gradients finite {finite}; losses bf16 {m16} fp32 {m32}")
+    assert finite and all(e <= 0.15 for e in errs.values()), errs
+    return {"errs": errs, "grad_rel_l2": grads, "metrics_bf16": m16, "metrics_fp32": m32}
+
+
+def train_rates(tr, st, batch, label):
+    """ms per step and imgs/s of bench.py's steady step and of the R1 step, device ms by
+    kernel, idle share, peak GiB."""
+    B = tr.batch_size
+    counter = iter(range(10**6))
+    steady = lambda: tr.step(st, batch, STEADY_IT + 48 * next(counter))  # noqa: E731
+    r1 = lambda: tr.step(st, batch, 1_000_000 + 16 * next(counter))  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    steady_ms = cuda_ms(steady, reps=4, repeats=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    r1_ms = cuda_ms(r1, reps=2, repeats=3)
+    r1_peak = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, wall_ms, by_name = profile_ms(steady, reps=3)
+    chain = {n: sum(t for k, t in by_name.items() if n in k) for n in ("fused_bias_act", "chain_fwd", "chain_bwd")}
+    rec = {
+        "label": label, "batch": B, "step_ms": steady_ms, "imgs_per_s": 1e3 * B / steady_ms, "peak_gib": peak,
+        "r1_step_ms": r1_ms, "r1_peak_gib": r1_peak,
+        # R1 every 16th step; ADA's p update (every 4th) adds no kernel of note
+        "amortized_ms": (15 * steady_ms + r1_ms) / 16, "device_ms": dev_ms, "profiled_wall_ms": wall_ms,
+        "device_idle_share": None if dev_ms is None else max(0.0, 1.0 - dev_ms / steady_ms),
+        "kernels_ms": chain, "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:10],
+    }
+    rec["amortized_imgs_per_s"] = 1e3 * B / rec["amortized_ms"]
+    log("train-rates", f"{label}: steady step {steady_ms:.3f} ms = {rec['imgs_per_s']:.1f} imgs/s, peak {peak:.2f} "
+        f"GiB; R1 step {r1_ms:.3f} ms, peak {r1_peak:.2f} GiB; amortized {rec['amortized_ms']:.3f} ms = "
+        f"{rec['amortized_imgs_per_s']:.1f} imgs/s; device {dev_ms} ms per steady step, idle share "
+        f"{rec['device_idle_share']}; K1 / K4 / K5 device ms {chain}")
+    log("train-rates", "  top device ms per steady step: " + "; ".join(f"{n[:60]} {t:.3f}" for n, t in rec["top_device_ms"]))
+    return rec
+
+
+def phase_train(dev, smi):
+    """The training step through Trainer: variants and launch counts, card against CPU,
+    bf16 against fp32, rates."""
+    card_vs_cpu = train_card_vs_cpu(dev)
+    bf16_vs_fp32 = train_bf16_vs_fp32(dev)
+
+    # every variant once at bf16 B=128, the counters read around each step
+    tr = Trainer(full_train_cfg(True), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    batch = train_batch(tr, 0)
+    variants = {}
+    for it, want in TRAIN_VARIANTS.items():
+        sched = tr.schedule(it)
+        assert (sched.do_r1, sched.do_ada, sched.skip_warmup) == want, (it, sched)
+        read_and_reset(CHAIN_COUNTERS)
+        t0 = time.perf_counter()
+        m = tr.step(st, batch, it)
+        metrics = {k: float(v) for k, v in m.items()}
+        seconds = time.perf_counter() - t0
+        launches = read_and_reset(CHAIN_COUNTERS)
+        variants[it] = {"r1_ada_steady": want, "launches": launches, "metrics": metrics, "first_call_s": seconds}
+        log("train", f"bf16 B=128 iteration {it} (R1, ADA, warmup faded = {want}): {seconds:.3f} s (first call of "
+            f"the variant); launches {launches}; {metrics}")
+        assert launches == STEP_LAUNCHES[want[0]], (it, launches)
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+    assert st.step == len(TRAIN_VARIANTS)
+
+    rates = [train_rates(tr, st, batch, "bf16 B=128")]
+    del tr, st, batch
+    torch.cuda.empty_cache()
+    tr = Trainer(full_train_cfg(False), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    batch = train_batch(tr, 0)
+    tr.step(st, batch, 0)
+    rates.append(train_rates(tr, st, batch, "fp32 B=32, TF32 off"))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        rates.append(train_rates(tr, st, batch, "fp32 B=32, TF32 allowed"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    del tr, st
+    torch.cuda.empty_cache()
+    steady = variants[STEADY_IT]["launches"]
+    return steady, {"card_vs_cpu": card_vs_cpu, "bf16_vs_fp32": bf16_vs_fp32, "variants": variants,
+                    "rates": rates, "nvidia_smi": smi}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -1166,6 +1493,10 @@ def main():
     D_cpu, critic_launches, critic_rec = phase_critic(x_fake, dev)
     k4["launches"], k5["launches"] = critic_launches["fused_chain_fwd"], critic_launches["fused_chain_bwd"]
     critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
+    train_launches, train_rec = phase_train(dev, smi)
+    # K1, K4 and K5 are on this slice's main path, the training step: bench.py's steady step
+    k1["launches"] = train_launches["fused_bias_act"]
+    k4["launches"], k5["launches"] = train_launches["fused_chain_fwd"], train_launches["fused_chain_bwd"]
     ks = [k1, k2, k3, k4, k5]
 
     record = {
@@ -1173,7 +1504,7 @@ def main():
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
-        "critic_rates": critic_rates,
+        "critic_rates": critic_rates, "train": train_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

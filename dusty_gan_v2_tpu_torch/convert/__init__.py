@@ -3,12 +3,13 @@
 from .jax_variables import (
     flatten_variables,
     jax_variables_to_state_dict,
+    load_jax_train_state,
     load_jax_variables,
     load_pointnet_params,
     pointnet_params_to_state_dict,
 )
 
 __all__ = [
-    "flatten_variables", "jax_variables_to_state_dict", "load_jax_variables",
+    "flatten_variables", "jax_variables_to_state_dict", "load_jax_train_state", "load_jax_variables",
     "load_pointnet_params", "pointnet_params_to_state_dict",
 ]

@@ -8,6 +8,12 @@ buffers under the same paths; a discriminator has the "params" collection only
 Leaves may be numpy or JAX arrays (anything
 np.asarray takes); nothing of JAX is imported here.
 
+`load_jax_train_state` carries a whole JAX `GANTrainState` (training/train_state.py) into
+the port's TrainState: the three variable trees, optax's Adam moments (its
+(ScaleByAdamState(count, mu, nu), EmptyState()) chain state) under the same paths as
+each optimizer's `step`, `exp_avg` and `exp_avg_sq`, the ADA controller and the PL
+baseline.
+
 The JAX PointNet keeps its parameters in a nested dict shaped like the torch state dict
 (pointnet.py::init_pointnet_params), so it flattens the same way; a pointwise-conv
 weight may come as (O, I) or (O, I, 1).
@@ -23,7 +29,7 @@ import torch
 
 __all__ = [
     "COLLECTIONS", "flatten_variables", "jax_variables_to_state_dict", "load_jax_variables",
-    "pointnet_params_to_state_dict", "load_pointnet_params",
+    "pointnet_params_to_state_dict", "load_pointnet_params", "load_jax_train_state",
 ]
 
 COLLECTIONS = ("params", "stats", "consts")
@@ -78,3 +84,51 @@ def load_pointnet_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Mo
     """Load a JAX PointNet pytree into the port's PointNetFeatures (strict=True)."""
     model.load_state_dict(pointnet_params_to_state_dict(params), strict=True)
     return model
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) of an optax adam chain state (its ScaleByAdamState)."""
+    for part in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        if all(hasattr(part, a) for a in ("count", "mu", "nu")):
+            return part.count, part.mu, part.nu
+    raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+
+
+def _load_adam(opt: torch.optim.Optimizer, model: torch.nn.Module, opt_state) -> None:
+    count, mu, nu = _adam_moments(opt_state)
+    mu, nu = flatten_variables({"params": mu}), flatten_variables({"params": nu})
+    params = dict(model.named_parameters())
+    for name, tree in (("mu", mu), ("nu", nu)):
+        if set(tree) != set(params):
+            raise ValueError(
+                f"Adam {name}: missing {sorted(set(params) - set(tree))[:5]}, extra {sorted(set(tree) - set(params))[:5]}"
+            )
+    opt_params = [p for group in opt.param_groups for p in group["params"]]
+    if {id(p) for p in opt_params} != {id(p) for p in params.values()}:
+        raise ValueError("the optimizer does not hold exactly the model's parameters")
+    for key, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(mu[key], dtype=np.float32)).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[key], dtype=np.float32)).to(p.device),
+        }
+
+
+def load_jax_train_state(state, jax_state):
+    """Load a JAX GANTrainState (leaves as numpy or JAX arrays) into the port's
+    TrainState in place and return it. G and G_ema take params / stats / consts, D its
+    params, each Adam its moments and step count; a missing or extra key fails."""
+    from ..augment.ada import AdaState
+
+    js = jax_state
+    load_jax_variables(state.G, {"params": js.params_G, "stats": js.stats_G, "consts": js.consts_G})
+    load_jax_variables(state.G_ema, {"params": js.params_G_ema, "stats": js.stats_G_ema, "consts": js.consts_G})
+    load_jax_variables(state.D, {"params": js.params_D})
+    _load_adam(state.opt_G, state.G, js.opt_G)
+    _load_adam(state.opt_D, state.D, js.opt_D)
+    dev = state.pl_ema.device
+    scalar = lambda v: torch.tensor(float(np.asarray(v)), dtype=torch.float32, device=dev)  # noqa: E731
+    state.ada = AdaState(p=scalar(js.ada.p), sign_cum=scalar(js.ada.sign_cum), n_pred_cum=scalar(js.ada.n_pred_cum))
+    state.pl_ema = scalar(js.pl_ema)
+    state.step = int(np.asarray(js.step))
+    return state

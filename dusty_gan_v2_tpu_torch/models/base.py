@@ -1,8 +1,9 @@
-"""Shared StyleGAN-style generator plumbing, eval path.
+"""Shared StyleGAN-style generator plumbing.
 
-Counterpart of dusty_gan_v2_tpu/models/base.py::GeneratorMixin._style: map z, repeat
-w over the styles, and pull it toward `w_avg` by the truncation trick. Style mixing
-and the train-time w_avg update are not ported yet.
+Counterpart of dusty_gan_v2_tpu/models/base.py::GeneratorMixin._style: map z, repeat w
+over the styles; in eval mode pull it toward `w_avg` by the truncation trick, in train
+mode move `w_avg` toward the batch mean of w instead (no truncation). Style mixing is
+not ported.
 """
 
 from __future__ import annotations
@@ -15,11 +16,18 @@ __all__ = ["GeneratorMixin"]
 class GeneratorMixin:
     """Mixin for a Generator nn.Module with a `mapping_network` and a `w_avg` buffer."""
 
-    def _style(self, z: torch.Tensor, num_styles: int, truncation_psi: float) -> torch.Tensor:
-        """z (B, D) -> ws (B, num_styles, D)."""
+    w_avg_decay: float = 0.995
+
+    def _style(self, z: torch.Tensor, num_styles: int, truncation_psi: float, train: bool = False) -> torch.Tensor:
+        """z (B, D) -> ws (B, num_styles, D). Train mode updates w_avg in place from the
+        detached float32 batch mean of w."""
         w = self.mapping_network(z)
         w = w[:, None, :].expand(-1, num_styles, -1)
-        if truncation_psi != 1.0:
+        if train:
+            with torch.no_grad():
+                batch_mean = w[:, 0].float().mean(dim=0, keepdim=True)
+                self.w_avg.copy_(self.w_avg + (1.0 - self.w_avg_decay) * (batch_mean - self.w_avg))
+        elif truncation_psi != 1.0:
             w_avg = self.w_avg[None].to(w.dtype)
             w = w_avg + truncation_psi * (w - w_avg)
         return w

@@ -1,6 +1,6 @@
-"""DUSty v2 generator, eval path: mapping network, five synthesis blocks over a
-multiscale laser-angle pyramid, multi-head skip accumulation and the ray-drop model;
-and the DUSty v2 discriminator: BlurVH pre-blur, 1x1 stem, residual blocks down to a
+"""DUSty v2 generator: mapping network, five synthesis blocks over a multiscale
+laser-angle pyramid, multi-head skip accumulation and the ray-drop model, in eval and
+train mode; and the DUSty v2 discriminator: BlurVH pre-blur, 1x1 stem, residual blocks down to a
 height of 4, minibatch-stddev epilogue.
 
 Counterpart of dusty_gan_v2_tpu/models/dusty_v2.py (MappingNetwork, Head,
@@ -10,8 +10,10 @@ ResidualBlock, Discriminator). Submodules carry the flax scope names
 res0.conv2.conv), so a JAX variable tree maps onto the state_dict by flattening its
 paths (convert/jax_variables.py).
 
-Not ported yet: the generator's training path (w_avg update, aug_coords shift, style
-mixing), noise injection, and rematerialized discriminator blocks.
+Train mode (`train=True`) updates the w_avg and ema_var buffers in place and, with
+`aug_coords`, shifts the azimuth per sample inside the Fourier encodings and shifts the
+skip back in image space. Not ported: style mixing, noise injection, and
+rematerialized discriminator blocks.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops import (
     RingConv2d,
     blur_conv_fusable,
     blur_vh,
+    circular_translate_w,
     fourier_out_ch,
     fused_act_resample,
     fused_resample,
@@ -38,6 +41,7 @@ from ..ops import (
     minibatch_stddev,
     pixel_norm,
     resample,
+    resample_sumsq,
     sample_logistic,
 )
 from .base import GeneratorMixin
@@ -93,8 +97,8 @@ class Head(nn.ModuleDict):
             }
         )
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> Dict[str, torch.Tensor]:
-        wbs, bs = zip(*(conv.weights(style, x.dtype) for conv in self.values()))
+    def forward(self, x: torch.Tensor, style: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        wbs, bs = zip(*(conv.weights(style, x.dtype, train, x) for conv in self.values()))
         B, C, H, W = x.shape
         wcat = torch.cat(wbs, dim=1).to(x.dtype)
         y = torch.matmul(wcat, x.reshape(B, C, H * W)).reshape(B, -1, H, W)
@@ -156,22 +160,33 @@ class SynthesisBlock(nn.Module):
         ws: Sequence[torch.Tensor],
         angle: Optional[torch.Tensor],
         pe_entry: Optional[torch.Tensor] = None,
+        train: bool = False,
+        azim_shift: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         ws = iter(ws)
-        x_op = None
+        x_op = x_stat = None
         if h is not None:
             h = h.to(self.dtype)
             if self.up_plan is not None:
                 # the 1x1 contraction commutes with the linear per-channel resample:
-                # contract at the low resolution, then upsample
+                # contract at the low resolution, then upsample. conv1's ema_var
+                # statistic is the upsampled input's, taken at the low resolution.
                 x_op = lambda y: resample(y, self.up_plan)  # noqa: E731
-        h_pe = self.pe_volume(angle) if pe_entry is None else pe_entry.to(self.dtype)
-        h = self.conv1(h, next(ws), x_shared=h_pe, x_op=x_op)
+                if train:
+                    with torch.no_grad():
+                        x_stat = resample_sumsq(h, self.up_plan)
+        pe_angle = angle.to(self.dtype) if pe_entry is None else None
+        pre = None if pe_entry is None else pe_entry.to(self.dtype)
+        if azim_shift is None:
+            h_pe, pe_rot = self.pe(pe_angle, precomputed=pre), None
+        else:
+            h_pe, pe_rot = self.pe(pe_angle, azim_shift=azim_shift, as_rotation=True, precomputed=pre)
+        h = self.conv1(h, next(ws), x_shared=h_pe, x_op=x_op, train=train, shared_rotation=pe_rot, x_stat=x_stat)
         h = self.bias_act1(h)
         if not self.is_first:
-            h = self.conv2(h, next(ws))
+            h = self.conv2(h, next(ws), train=train)
             h = self.bias_act2(h)
-        o = self.head(h, next(ws))
+        o = self.head(h, next(ws), train=train)
         # skip accumulation in float32, all heads stacked so one resample serves them
         o_stack = torch.cat([o[c["name"]].float() for c in self.out_ch if c["ch"] > 0], dim=1)
         if skip is not None:
@@ -202,7 +217,8 @@ class SynthesisNetwork(nn.Module):
         use_noise: bool = True,
         pe_type: str = "random",
         pe_scale_offset: Tuple[int, int] = (3, -1),
-        aug_coords: bool = True,  # train-time only; the eval path does not read it
+        aug_coords: bool = True,
+        aug_coords_blitting: bool = False,
         output_scale: float = 0.25,
         compute_dtype: str = "float32",
     ):
@@ -212,6 +228,7 @@ class SynthesisNetwork(nn.Module):
         self.ring = ring
         self.layers = tuple(layers)
         self.num_fp16_layers = num_fp16_layers
+        self.aug_coords, self.aug_coords_blitting = aug_coords, aug_coords_blitting
         self.output_scale = output_scale
         self.compute_dtype = compute_dtype
         self.scales = (1,) + self.layers
@@ -265,17 +282,34 @@ class SynthesisNetwork(nn.Module):
         """Per-block PE volumes for a fixed angle grid (feed back as `pe_cache`)."""
         return tuple(b.pe_volume(a) for b, a in zip(self.blocks(), self.angle_pyramid(angle)))
 
-    def forward(self, ws: torch.Tensor, angle: torch.Tensor, pe_cache=None) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, ws: torch.Tensor, angle: torch.Tensor, pe_cache=None, train: bool = False,
+        aug_shift: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """In train mode with aug_coords, `aug_shift` (B,) in [0, 1) is each sample's
+        azimuth shift in turns: the encodings are shifted by it and the skip is shifted
+        back by as many pixels."""
         if ws.shape[1] != self.num_styles:
             raise ValueError(f"{ws.shape[1]} styles != {self.num_styles}")
+        shift = None
+        if train and self.aug_coords:
+            if aug_shift is None or tuple(aug_shift.shape) != (ws.shape[0],):
+                raise ValueError("train mode with aug_coords needs aug_shift of shape (B,)")
+            W = self.resolution[1]
+            shift01 = torch.round(aug_shift * W) / W if self.aug_coords_blitting else aug_shift
+            shift = shift01 * (2.0 * np.pi)
         if pe_cache is None:
             pyramid, pe_cache = self.angle_pyramid(angle), (None,) * len(self.scales)
         else:
             pyramid = (None,) * len(self.scales)
         h, skip, wi = None, None, 0
         for i, block in enumerate(self.blocks()):
-            h, skip = block(h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i])
+            h, skip = block(
+                h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i], train, shift
+            )
             wi += 1 if i == 0 else 2
+        if shift is not None:
+            skip = circular_translate_w(skip, shift / (2.0 * np.pi) * self.resolution[1])
         out, c0 = {}, 0
         for o in self.out_ch:
             if o["ch"] == 0:
@@ -318,12 +352,20 @@ class Generator(nn.Module, GeneratorMixin):
         gumbel_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         pe_cache=None,
+        train: bool = False,
+        aug_shift: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D), angle (1, 2, H, W) -> dict of image, raydrop_logit, w,
         raydrop_mask, image_orig. Without `gumbel_noise` the logistic noise is drawn
-        from `generator`."""
-        w = self._style(z, self.synthesis_network.num_styles, truncation_psi)
-        o = self.synthesis_network(w, angle, pe_cache=pe_cache)
+        from `generator`, and so is the train-mode azimuth shift without `aug_shift`
+        (U[0, 1) per sample, drawn first)."""
+        syn = self.synthesis_network
+        if train and syn.aug_coords and aug_shift is None:
+            if generator is None:
+                raise ValueError("pass aug_shift or a torch.Generator to draw it")
+            aug_shift = torch.rand(z.shape[0], generator=generator, device=z.device)
+        w = self._style(z, syn.num_styles, truncation_psi, train)
+        o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift)
         o["w"] = w
         if gumbel_noise is None:
             if generator is None:

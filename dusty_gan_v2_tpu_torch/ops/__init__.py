@@ -11,8 +11,9 @@ from .gumbel import gumbel_sigmoid, sample_logistic
 from .linear import EqualLRConv2d, EqualLRDense, RingConv2d
 from .modconv import ModConv2d
 from .normalize import minibatch_stddev, pixel_norm
-from .pad import conv3x3_ring_fast, conv_ring_fast, pad2d, pad_axis
-from .resample import ResamplePlan, blur_vh, make_resample, resample
+from .pad import conv3x3_ring_fast, conv_ring_fast, filter2d, pad2d, pad_axis
+from .resample import ResamplePlan, blur_vh, make_resample, resample, resample_sumsq, upfirdn2d
+from .shift import circular_translate_w, fractional_wrap_lerp
 
 __all__ = [
     "FusedLeakyReLU", "fused_bias_act", "fused_bias_act_cuda", "fused_leaky_relu",
@@ -22,6 +23,7 @@ __all__ = [
     "fused_chain_fwd_cuda", "fused_resample", "fused_resample_plain",
     "gumbel_sigmoid", "sample_logistic",
     "EqualLRConv2d", "EqualLRDense", "RingConv2d", "ModConv2d", "minibatch_stddev", "pixel_norm",
-    "conv3x3_ring_fast", "conv_ring_fast", "pad2d", "pad_axis",
-    "ResamplePlan", "blur_vh", "make_resample", "resample",
+    "conv3x3_ring_fast", "conv_ring_fast", "filter2d", "pad2d", "pad_axis",
+    "ResamplePlan", "blur_vh", "make_resample", "resample", "resample_sumsq", "upfirdn2d",
+    "circular_translate_w", "fractional_wrap_lerp",
 ]

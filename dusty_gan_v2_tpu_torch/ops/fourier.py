@@ -1,4 +1,4 @@
-"""Fourier-feature positional encoding of the laser-angle grid, "random" basis, eval path.
+"""Fourier-feature positional encoding of the laser-angle grid, "random" basis.
 
 Counterpart of dusty_gan_v2_tpu/ops/fourier.py: a frozen frequency bank projects the
 (elevation, azimuth) angle map and the result is [sin, cos]-encoded. The W frequencies
@@ -6,12 +6,17 @@ come from a +-2^k lattice so the encoding stays periodic over the azimuth; the H
 frequencies are uniform in band. `freqs` and `phase` are buffers (the JAX collection
 "consts"); a fresh model draws them from a torch.Generator, so parity with a JAX model
 needs them carried across (convert/jax_variables.py).
+
+The train-time azimuth shift (`azim_shift`) enters through the identity
+sin(c + f_w d) = sin c cos(f_w d) + cos c sin(f_w d): with `as_rotation` the encoding
+stays the unshifted batch-1 volume and the per-sample (sin, cos) of f_w d are returned
+for the consuming modconv to rotate its weight columns (ops/modconv.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +59,31 @@ class FourierFeature(nn.Module):
             self.freqs[:, 1].copy_(lattice[pick])
             self.phase.uniform_(0.0, 2 * math.pi, generator=generator)
 
-    def forward(self, angle: torch.Tensor) -> torch.Tensor:
-        """angle (B, 2, H, W) -> (B, out_ch, H, W), in angle's dtype."""
-        f = self.freqs.to(angle.dtype)
-        coords = torch.einsum("fc,bchw->bfhw", f, angle)
-        coords = coords + self.phase.to(angle.dtype)[None, :, None, None]
-        return torch.cat([torch.sin(coords), torch.cos(coords)], dim=1)
+    def forward(
+        self,
+        angle: Optional[torch.Tensor],
+        azim_shift: Optional[torch.Tensor] = None,
+        as_rotation: bool = False,
+        precomputed: Optional[torch.Tensor] = None,
+    ):
+        """angle (B, 2, H, W) -> (B, out_ch, H, W), in angle's dtype.
+
+        `precomputed`, an encoding this module returned before for the same angle grid,
+        replaces the einsum and sin/cos (angle may then be None). `azim_shift` (B,)
+        shifts the azimuth per sample: the encoding comes back per sample, or, with
+        `as_rotation`, as (unshifted encoding, (sin_delta, cos_delta) each (B, F))."""
+        f = self.freqs.to(angle.dtype if angle is not None else precomputed.dtype)
+        if precomputed is not None:
+            n = precomputed.shape[1] // 2
+            s, c = precomputed[:, :n], precomputed[:, n:]
+        else:
+            coords = torch.einsum("fc,bchw->bfhw", f, angle)
+            coords = coords + self.phase.to(angle.dtype)[None, :, None, None]
+            s, c = torch.sin(coords), torch.cos(coords)
+        if azim_shift is None:
+            return torch.cat([s, c], dim=1)
+        delta = f[:, 1][None] * azim_shift[:, None]  # (B, F)
+        if as_rotation:
+            return torch.cat([s, c], dim=1), (torch.sin(delta), torch.cos(delta))
+        sd, cd = torch.sin(delta)[:, :, None, None], torch.cos(delta)[:, :, None, None]
+        return torch.cat([s * cd + c * sd, c * cd - s * sd], dim=1)

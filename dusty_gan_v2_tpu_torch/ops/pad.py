@@ -1,17 +1,18 @@
 """Ring (circular-azimuth) padding, and the ring-padded 3x3 / 4x4 convolution.
 
-Counterpart of dusty_gan_v2_tpu/ops/pad.py (_pad_axis, pad2d, conv_ring_fast): LiDAR
-range images are periodic along the azimuth (W), so W pads circularly and H by edge
+Counterpart of dusty_gan_v2_tpu/ops/pad.py (_pad_axis, pad2d, conv_ring_fast, filter2d):
+LiDAR range images are periodic along the azimuth (W), so W pads circularly and H by edge
 replication or reflection; the SWD metric's Gaussian pyramid pads both axes by
 reflection.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["pad_axis", "pad2d", "conv_ring_fast", "conv3x3_ring_fast"]
+__all__ = ["pad_axis", "pad2d", "conv_ring_fast", "conv3x3_ring_fast", "filter2d"]
 
 
 def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.Tensor:
@@ -72,3 +73,20 @@ def conv_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1), h_mode: str 
 def conv3x3_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
     """3x3 circular-W / replicate-H convolution (conv_ring_fast with its default mode)."""
     return conv_ring_fast(x, w, stride, h_mode="replicate")
+
+
+def filter2d(x: torch.Tensor, kernel, gain: float = 1.0) -> torch.Tensor:
+    """Separable blur with circular-W / replicate-H padding: the 1-D kernel is normalized
+    to sum 1 and scaled by sqrt(gain) (so the 2-D gain is `gain`), x is padded by
+    (k // 2, (k - 1) // 2) and filtered along W, then along H (no flip)."""
+    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
+    if k.ndim != 1:
+        raise ValueError(f"filter2d takes a 1-D kernel, got shape {tuple(k.shape)}")
+    k = k / k.sum() * (gain ** 0.5)
+    f, C = k.shape[0], x.shape[1]
+    p0, p1 = f // 2, (f - 1) // 2
+    x = pad_axis(x, -1, p0, p1, "circular")
+    x = pad_axis(x, -2, p0, p1, "replicate")
+    k = k.to(x.dtype)
+    x = F.conv2d(x, k.reshape(1, 1, 1, f).expand(C, 1, 1, f), groups=C)
+    return F.conv2d(x, k.reshape(1, 1, f, 1).expand(C, 1, f, 1), groups=C)

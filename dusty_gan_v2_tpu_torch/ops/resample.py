@@ -5,6 +5,9 @@ Counterpart of dusty_gan_v2_tpu/ops/resample.py: margin pad (circular W / replic
 linear and factorizes per axis, so the port takes the JAX package's matrix form: each
 axis's pipeline is applied once to an identity basis (in float64, on the CPU) to give
 dense (H_out, H) and (W_out, W) operators, and `resample` is two matmuls.
+`resample_sumsq` evaluates sum(resample(x)^2) at x's own resolution from the operators'
+Gram factors (the generator's train-time ema_var statistic), and `upfirdn2d` is a numpy
+upfirdn for building other constant operators (ADA's warp chain).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from .pad import pad_axis
 
-__all__ = ["ResamplePlan", "make_resample", "resample", "blur_vh"]
+__all__ = ["ResamplePlan", "make_resample", "resample", "resample_sumsq", "blur_vh", "upfirdn2d"]
 
 
 def _pair(v):
@@ -155,6 +158,58 @@ def resample(x: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     H, W = x.shape[-2:]
     Hmat, WmatT = _matrices_on(plan, H, W, x.device, x.dtype)
     return torch.matmul(Hmat, torch.matmul(x, WmatT))
+
+
+@functools.lru_cache(maxsize=None)
+def _resample_gram(plan: ResamplePlan, H: int, W: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Gram factors G_H = Hmat^T Hmat (H, H) and G_W = Wmat^T Wmat (W, W) of the plan at
+    input size (H, W), accumulated in float64 and stored as float32, and the output
+    plane size H_out * W_out. Since resample(x) = Hmat x Wmat^T per plane,
+    sum(resample(x)^2) == sum(x * (G_H x G_W^T))."""
+    Hm, Wm = (m.astype(np.float64) for m in _resample_matrices(plan, H, W))
+    return (Hm.T @ Hm).astype(np.float32), (Wm.T @ Wm).astype(np.float32), Hm.shape[0] * Wm.shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_on(plan: ResamplePlan, H: int, W: int, device: torch.device):
+    GH, GW, plane = _resample_gram(plan, H, W)
+    return torch.from_numpy(GH).to(device), torch.from_numpy(GW).to(device), plane
+
+
+def resample_sumsq(x: torch.Tensor, plan: ResamplePlan) -> Tuple[torch.Tensor, int]:
+    """(sum(resample(x, plan)^2) in float32, number of resampled elements), without
+    making the resampled tensor: two Gram products at x's resolution and one dot."""
+    B, C, H, W = x.shape
+    GH, GW, plane = _gram_on(plan, H, W, x.device)
+    x32 = x.float()
+    y = torch.matmul(GH, torch.matmul(x32, GW.t()))
+    return (x32 * y).sum(), B * C * plane
+
+
+def upfirdn2d(x: np.ndarray, kernel, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)) -> np.ndarray:
+    """Zero-insertion upsample -> pad (x0, x1, y0, y1; negative crops) -> FIR -> stride
+    downsample over the last two axes of a numpy array, in float64, as
+    dusty_gan_v2_tpu/ops/resample.py::upfirdn2d computes it: the upsampled axis keeps
+    up - 1 zeros after its last sample, and the kernel is correlated (not flipped). A
+    1-D kernel filters along W. For constant operators, not for training tensors."""
+    up, down = _pair(up), _pair(down)
+    k = np.asarray(kernel, np.float64)
+    if k.ndim == 1:
+        k = k.reshape(1, -1)
+    px0, px1, py0, py1 = pad
+    x = np.asarray(x, np.float64)
+    *lead, h, w = x.shape
+    z = np.zeros((*lead, h * up[0], w * up[1]))
+    z[..., :: up[0], :: up[1]] = x
+    z = np.pad(z, [(0, 0)] * len(lead) + [(max(py0, 0), max(py1, 0)), (max(px0, 0), max(px1, 0))])
+    z = z[..., max(-py0, 0): z.shape[-2] - max(-py1, 0), max(-px0, 0): z.shape[-1] - max(-px1, 0)]
+    kh, kw = k.shape
+    oh, ow = z.shape[-2] - kh + 1, z.shape[-1] - kw + 1
+    out = np.zeros((*lead, oh, ow))
+    for i in range(kh):
+        for j in range(kw):
+            out += k[i, j] * z[..., i: i + oh, j: j + ow]
+    return out[..., :: down[0], :: down[1]]
 
 
 def blur_vh(x: torch.Tensor, window=(1, 2, 1), ring: bool = True) -> torch.Tensor:
