@@ -49,14 +49,41 @@
    1,000,000, 1,000,004 and 1,000,003, bench.py's steady step) and the launch counters
    show K1, K4 and K5 on it (39 / 36 / 12 a step, 46 / 60 / 20 with R1). One fp32 B=4
    step (R1 + ADA + warmup) from a state whose Adam moments are populated runs on the
-   card and on the CPU on the same replayed draws: the adversarial losses and D outputs
-   within 1e-4; R1's penalty and each phase's gradients before the optimizer within 1e-2
-   of their largest magnitude, or within twice the shift one ulp in the weights causes to
-   that phase on the CPU where that is larger; G's buffers and the ADA state 1e-4; on the
-   card, G's update is Adam's on its moments and the EMA e d + p (1 - d). The bf16 B=128 steady
+   card and on the CPU on the same replayed draws, each on its own trajectory: the
+   losses and D outputs within 1e-4 (PL's penalty and pl_ema 1e-3), or twice the shift
+   one ulp in the weights causes on the CPU where that is larger; D's outputs on fakes
+   over the samples with no raydrop decision taken the other way (the straight-through
+   Gumbel mask is a hard threshold: a pixel whose logit plus noise sits within rounding
+   of it can flip after G's update), at most 4 such pixels (or twice as many as one ulp
+   flips) on at most half the fakes; a CPU run fed the card's gradients (each phase on
+   the state the card's earlier phases made) within 1e-4, PL's values too; R1's penalty
+   and each phase's gradients before the optimizer within 1e-2 of their largest
+   magnitude, or within twice the one-ulp shift where that is larger; G's buffers and
+   the ADA state 1e-4; on the card, G's update is
+   Adam's on its moments and the EMA e d + p (1 - d). The bf16 B=128 steady
    step stays within bf16 precision of the fp32 one. Then the rates: ms per step and
    imgs/s at bf16 B=128 and fp32 B=32 (TF32 off, and allowed), the R1 step, device ms by
    kernel, idle share, peak GiB.
+10. cli: the command lines in process, through main(argv), full width and depth. A KITTI
+   Raw tree is fabricated from a seed in a temporary directory (32 train frames of
+   odometry sequence 00's drive, 64 test frames of a city drive; 64 rings x 2048
+   azimuths a scan). configs/gans/dusty_v2_bf16.yaml is read with the port's
+   load_config (B=128, cache: ram, float16 upload, warmup and ADA on) and changed only in
+   the dataset root, prune_missing, total_kimg and the cadences (stats every 4, a
+   checkpoint every 8, validation past the run). train_gan runs iterations 1-8 and
+   writes a checkpoint; the state loaded from it equals the saved one bit for bit;
+   train_gan --resume runs 9-16 (ADA at 12 and 16, R1 at 16); the launch counters show
+   K1 / K4 / K5 equal to the sum of the variants that ran; the final checkpoint loads
+   through pretrained.autoload_ckpt. A second resumed run, under the profiler, gives the
+   device's busy time over iterations 9-15, and the idle share over the unprofiled window. One fp32 B=4 PL iteration (pl 2) runs on the
+   card and on the CPU on replayed draws, held to phase 9's bars (the PL penalty and
+   pl_ema among the values, both of G's Adam steps checked); one
+   bf16 B=128 PL step is timed beside the steady step. test_gan evaluates the final
+   checkpoint over swd, jsd, 1nna-cd, 1nna-emd, fpd and kpd at 64 + 64 clouds with a
+   seeded random PointNet: K1 9, K2 3 and K3 48 launches, every score finite and in --out.
+   Recorded: the CLI's imgs/s over iterations 9-15 beside phase 9's bare step, the
+   loader's host ms per batch (first pass and cached), the idle share, the PL step's ms
+   and test_gan's seconds per stage.
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
@@ -79,6 +106,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dusty_gan_v2_tpu_torch import kernels
+from dusty_gan_v2_tpu_torch.datasets import InfiniteSampler, KITTIRaw, Prefetcher
 from dusty_gan_v2_tpu_torch.evaluation import collect_generated, evaluate
 from dusty_gan_v2_tpu_torch.metrics import (
     build_pointnet, earth_mover_distance, emd_cost, emd_cuda, fps_cuda, furthest_point_sampling,
@@ -1236,12 +1264,25 @@ def state_to_cpu(st):
     return st
 
 
-def phase_recorder(out):
-    """on_phase hook: each phase's values and its network's gradients, on the host."""
+def phase_recorder(out, edit=None):
+    """on_phase hook: each phase's values and its network's gradients, on the host; then
+    `edit(name, state, net)`, where given, before the optimizer steps."""
     def hook(name, st, values):
-        net = st.G if name == "g" else st.D
+        net = st.G if name in ("g", "pl") else st.D
         out[name] = ({k: v.detach().float().cpu() for k, v in values.items()}, grads_of(net))
+        if edit is not None:
+            edit(name, st, net)
     return hook
+
+
+def feed_grads(record):
+    """phase_recorder edit: each phase's gradients replaced by another run's (`record`),
+    so that the next phase starts from the state that run's update made."""
+    def edit(name, st, net):
+        with torch.no_grad():
+            for k, prm in net.named_parameters():
+                prm.grad.copy_(record[name][1][k])
+    return edit
 
 
 def flat_state(st):
@@ -1267,7 +1308,7 @@ def adam_formula_err(opt, net, old, new):
         upd = -lr * (mu / (1 - b1**t)) / ((nu / (1 - b2**t)).sqrt() + eps)
         d = new[f"G.{k}"].double() - old[f"G.{k}"].double()
         excess = float(((d - upd).abs() - 2 * ulp(new[f"G.{k}"]).double()).clamp(min=0).max())
-        worst = max(worst, excess / float(upd.abs().max()))
+        worst = max(worst, excess / max(float(upd.abs().max()), 1e-30))  # PL's step leaves the mapping net
     return worst
 
 
@@ -1282,60 +1323,129 @@ def update_err(new, ref, old, keys):
     return worst
 
 
-def train_card_vs_cpu(dev):
-    """One fp32 B=4 step, R1 + ADA + warmup, on the card and on the CPU from the same
-    state (two steps old, so Adam's moments are populated) on the same draws."""
+FLIP = 1e-2  # a pixel of D's input this far from the CPU's: a raydrop decision taken the other way
+MAX_FLIPS = 4  # such pixels allowed in a B=4 step's fakes (131,072 pixels), or twice the one-ulp run's
+# PL's penalty and baseline on each run's own trajectory: squared deviations of path lengths
+# that G takes after an Adam step on a gradient the card matches to ~3.5e-3 of its largest
+# (bar 1e-2) at iteration 36; with the CPU fed the card's gradients they are held at 1e-4
+PL_VALUES, PL_BAR = ("loss/G/path_length", "loss/G/path_length/baseline"), 1e-3
+
+
+def train_card_vs_cpu(dev, it=32, pl=0, label="train"):
+    """One fp32 B=4 step on the card and on the CPU from the same state (two steps old, so
+    Adam's moments are populated) on the same draws: at iteration 32 R1 + ADA + warmup;
+    with `pl` > 0 (lazy pl 4) iteration 36 takes PL + ADA + warmup.
+
+    Each run keeps its own trajectory. Fakes carry a hard raydrop mask (the straight-through
+    Gumbel-sigmoid's forward thresholds logit + noise), so after G's update a pixel whose
+    logit plus noise sits within rounding of the threshold can be dropped on one side and
+    kept on the other, and D's output on that fake moves by far more than rounding. So D's
+    outputs on fakes are compared on the samples whose fake has no such pixel (at least
+    half of them), and the pixels are counted (at most MAX_FLIPS, or twice as many as one
+    ulp in the weights flips on the CPU). Values are held at 1e-4 (PL's at PL_BAR), or
+    twice the shift one ulp in the weights makes on the CPU where that is larger. A CPU
+    run that takes the card's gradients into its optimizer steps holds each phase on the
+    state the card's earlier phases made, every value at 1e-4."""
     cfg = full_train_cfg(False)
     cfg["training"]["batch_size"] = 4
-    it = 32  # R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations)
+    cfg["training"]["loss"]["pl"] = pl
+    # it 32: R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations); 36: PL (every 4), no R1
     tr = Trainer(cfg, device=dev, seed=7)
     st = tr.init_state(seed=3)
     batch = train_batch(tr, 1)
-    for pre in (30, 31):
+    for pre in (it - 2, it - 1):
         tr.step(st, batch, pre)
-    assert tr.schedule(it)[2:5] == (False, True, True)
+    sched = tr.schedule(it)
+    assert (sched.skip_warmup, sched.do_pl, sched.do_ada) == (False, pl > 0, True)
     draws = record_draws(tr, st, batch, it)
     tr_cpu = Trainer(cfg, device="cpu", angle=tr.angle.cpu(), seed=7)
-    st_cpu = state_to_cpu(st)
     batch_cpu = {k: v.cpu() for k, v in batch.items()}
-    st_ulp = state_to_cpu(st)
+    starts = {n: state_to_cpu(st) for n in ("cpu", "cpu_ulp", "cpu_fed")}
     with torch.no_grad():
-        for net in (st_ulp.G, st_ulp.D):
+        for net in (starts["cpu_ulp"].G, starts["cpu_ulp"].D):
             for prm in net.parameters():
                 prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
-    old, old_ulp, old_card = flat_state(st_cpu), flat_state(st_ulp), flat_state(st)
+    old, old_ulp, old_card = flat_state(starts["cpu"]), flat_state(starts["cpu_ulp"]), flat_state(st)
 
-    runs = {}
-    t0 = time.perf_counter()
-    for name, (t, s, b, d) in {"card": (tr, st, batch, dev), "cpu": (tr_cpu, st_cpu, batch_cpu, "cpu"),
-                               "cpu_ulp": (tr_cpu, st_ulp, batch_cpu, "cpu")}.items():
-        phases = {}
+    # on the card's own numbers, each of G's Adam steps (a second one after PL) is Adam's on
+    # the moments it left: checked at the PL hook for the first, after the step for the last
+    g_before, adam_errs = [old_card], []
+
+    def check_g_step(name, s, net):
+        if name == "pl":
+            now = flat_state(s)
+            adam_errs.append(adam_formula_err(s.opt_G, s.G, g_before[0], now))
+            g_before[0] = now
+
+    runs, fakes = {}, {}
+
+    def run(name, t, s, b, d, edit=None):
+        phases, seen, marks = {}, [], {}
+
+        def mark(phase, st_, net):
+            marks[phase] = len(seen)
+            if edit is not None:
+                edit(phase, st_, net)
+
+        hook = s.D.register_forward_pre_hook(lambda mod, args: seen.append(args[0].detach().float().cpu()))
         rs = ReplayStream(draws, device=d)
-        metrics = t.step(s, b, it, draws=rs, on_phase=phase_recorder(phases))
+        try:
+            metrics = t.step(s, b, it, draws=rs, on_phase=phase_recorder(phases, mark))
+        finally:
+            hook.remove()
         assert rs.remaining == 0, name
         runs[name] = (phases, {k: float(v) for k, v in metrics.items()}, s)
+        fakes[name] = seen[marks["d"] - 1]  # the d phase scores reals, then the fakes of the updated G
+
+    t0 = time.perf_counter()
+    run("card", tr, st, batch, dev, check_g_step)
+    run("cpu", tr_cpu, starts["cpu"], batch_cpu, "cpu")
+    run("cpu_ulp", tr_cpu, starts["cpu_ulp"], batch_cpu, "cpu")
+    run("cpu_fed", tr_cpu, starts["cpu_fed"], batch_cpu, "cpu", feed_grads(runs["card"][0]))
     cpu_s = time.perf_counter() - t0
-    (ph, m, _), (ph_cpu, m_cpu, _), (ph_ulp, _, _) = runs["card"], runs["cpu"], runs["cpu_ulp"]
+    (ph, m, _), (ph_cpu, m_cpu, st_cpu), (ph_ulp, _, st_ulp) = runs["card"], runs["cpu"], runs["cpu_ulp"]
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
-    value_err = {k: rel(m[k], m_cpu[k]) for k in ("loss/G/adversarial", "loss/D/adversarial")}
-    value_err["d_outputs"] = max(float((ph["d"][0][k] - ph_cpu["d"][0][k]).abs().max()) for k in ("y_real", "y_fake"))
+    loss_keys = ["loss/G/adversarial", "loss/D/adversarial"]
+    if sched.do_pl:
+        loss_keys += ["loss/G/path_length", "loss/G/path_length/baseline"]
+    flips = {n: ((fakes[n] - fakes["cpu"]).abs() > FLIP).flatten(1).sum(1).tolist() for n in ("card", "cpu_ulp")}
+    flips["cpu_fed"] = ((fakes["card"] - fakes["cpu_fed"]).abs() > FLIP).flatten(1).sum(1).tolist()
+
+    def value_diff(a, b, n_flips):
+        """losses (relative) and D's outputs (max abs; on fakes over the samples without a
+        flipped raydrop decision) of run a against run b"""
+        (pa, ma, _), (pb, mb, _) = runs[a], runs[b]
+        d = {k: rel(ma[k], mb[k]) for k in loss_keys}
+        d["y_real"] = float((pa["d"][0]["y_real"] - pb["d"][0]["y_real"]).abs().max())
+        keep = torch.tensor(n_flips) == 0
+        d["y_fake"] = float((pa["d"][0]["y_fake"] - pb["d"][0]["y_fake"])[keep].abs().max()) if keep.any() else 0.0
+        return d
+
+    value_err = value_diff("card", "cpu", flips["card"])
+    one_ulp_value, fed_value_err = value_diff("cpu_ulp", "cpu", flips["cpu_ulp"]), value_diff("card", "cpu_fed", flips["cpu_fed"])
+    value_bar = {k: max(PL_BAR if k in PL_VALUES else 1e-4, 2 * one_ulp_value[k]) for k in value_err}
+    flip_bar = max(MAX_FLIPS, 2 * sum(flips["cpu_ulp"]))
+    y_fake_err = (ph["d"][0]["y_fake"] - ph_cpu["d"][0]["y_fake"]).abs().flatten().tolist()
     # R1's penalty is a sum of squared input gradients: it is held to the gradients' bar
-    penalty_err = rel(m["loss/D/gradient_penalty"], m_cpu["loss/D/gradient_penalty"])
-    grad_err = {f"{n}_phase": rel_max_err(ph[n][1], ph_cpu[n][1]) for n in ("g", "d", "r1")}
-    one_ulp = {f"{n}_phase": rel_max_err(ph_ulp[n][1], ph_cpu[n][1]) for n in ("g", "d", "r1")}
+    penalty_err = rel(m["loss/D/gradient_penalty"], m_cpu["loss/D/gradient_penalty"]) if sched.do_r1 else 0.0
+    phases = [n for n in ("g", "pl", "d", "r1") if n in ph]
+    grad_err = {f"{n}_phase": rel_max_err(ph[n][1], ph_cpu[n][1]) for n in phases}
+    fed_grad_err = {f"{n}_phase": rel_max_err(ph[n][1], runs["cpu_fed"][0][n][1]) for n in phases}
+    one_ulp = {f"{n}_phase": rel_max_err(ph_ulp[n][1], ph_cpu[n][1]) for n in phases}
     # a phase's bar is 1e-2 of its gradients' largest magnitude (the D side's), or twice the
     # shift one ulp in every weight causes to the same phase on the CPU where that is
     # larger: R1's gradients at B=4 follow leaky-ReLU masks that flip within rounding, and
     # in some runs one ulp moves them by more than 1e-2
     grad_bar = {k: max(1e-2, 2 * one_ulp[k]) for k in grad_err}
-    new, new_cpu, new_ulp = flat_state(st), flat_state(st_cpu), flat_state(runs["cpu_ulp"][2])
+    new, new_cpu, new_ulp = flat_state(st), flat_state(st_cpu), flat_state(st_ulp)
     bufs = [k for k in new_cpu if k.startswith("G") and k.endswith(("w_avg", "ema_var"))]
     buf_err = max(float((new[k] - new_cpu[k]).abs().max() / new_cpu[k].abs().max()) for k in bufs)
     ada_err = max(abs(float(a) - float(b)) for a, b in zip(
         (st.ada.p, st.ada.sign_cum, st.ada.n_pred_cum), (st_cpu.ada.p, st_cpu.ada.sign_cum, st_cpu.ada.n_pred_cum)))
-    # on the card's own numbers: G's update is Adam's on its moments, the EMA is
+    # on the card's own numbers: G's last update is Adam's on its moments, the EMA is
     # e * d + p * (1 - d) in float32 (both within 2 ulps of the stored values)
-    adam_err = adam_formula_err(st.opt_G, st.G, old_card, new)
+    adam_errs.append(adam_formula_err(st.opt_G, st.G, g_before[0], new))
+    adam_err = max(adam_errs)
     d32 = np.float32(tr.schedule(it).ema_decay)
     ema_ok = all(
         bool(((new[f"G_ema.{k}"] - (old_card[f"G_ema.{k}"] * float(d32) + new[f"G.{k}"] * float(np.float32(1) - d32)))
@@ -1348,19 +1458,30 @@ def train_card_vs_cpu(dev):
             for n in ("G", "D", "G_ema")}
     upd_err = {n: update_err(new, new_cpu, old, ks) for n, ks in keys.items()}
     upd_ulp = {n: update_err({k: new_ulp[k] - old_ulp[k] + old[k] for k in ks}, new_cpu, old, ks) for n, ks in keys.items()}
-    log("train", f"card vs CPU, fp32 B=4 step at iteration {it} (CPU steps {cpu_s:.1f} s): adversarial losses (relative) "
-        f"and D outputs (abs) {value_err} (bar 1e-4); R1 penalty {penalty_err:.3g} relative and phase gradients' max abs "
-        f"err over the largest magnitude {grad_err} (bars {grad_bar}: 1e-2, or twice the shift of the CPU against "
-        f"itself with every weight one ulp up, {one_ulp}); G buffers {buf_err:.3g} of their largest (bar 1e-4); ADA state {ada_err:.3g} (bar 1e-4); on the "
-        f"card G's update is Adam's on its moments within {adam_err:.3g} of the largest (bar 1e-4), the EMA "
-        f"e d + p (1 - d) within 2 ulps: {ema_ok}; parameter and EMA updates against the CPU's {upd_err}, one ulp's "
-        f"{upd_ulp} (measured); metrics {m}")
-    assert all(e <= 1e-4 for e in value_err.values()), value_err
-    assert penalty_err <= 1e-2 and all(grad_err[k] <= grad_bar[k] for k in grad_err), (penalty_err, grad_err, grad_bar)
-    assert buf_err <= 1e-4 and ada_err <= 1e-4 and adam_err <= 1e-4 and ema_ok, (buf_err, ada_err, adam_err, ema_ok)
-    return {"iteration": it, "value_err": value_err, "penalty_err": penalty_err, "grad_err": grad_err,
-            "one_ulp_grad_shift": one_ulp, "grad_bar": grad_bar, "buffer_err": buf_err, "ada_err": ada_err, "adam_formula_err": adam_err,
-            "update_err": upd_err, "one_ulp_update_shift": upd_ulp, "metrics": m, "cpu_steps_s": cpu_s}
+    log(label, f"card vs CPU, fp32 B=4 step at iteration {it} (CPU steps {cpu_s:.1f} s): losses (relative) and D "
+        f"outputs (abs) {value_err}, bars {value_bar} (1e-4, PL's {PL_BAR}, or twice the shift of the CPU against "
+        f"itself with every weight one ulp up, {one_ulp_value}); raydrop decisions taken the other way, per fake, card {flips['card']}, "
+        f"one ulp {flips['cpu_ulp']}, fed {flips['cpu_fed']} (at most {flip_bar}, on at most half the fakes; y_fake "
+        f"per sample {y_fake_err}); "
+        f"CPU fed the card's gradients {fed_value_err} (bar 1e-4); R1 penalty {penalty_err:.3g} relative and phase "
+        f"gradients' max abs err over the largest magnitude {grad_err}, fed {fed_grad_err} (bars {grad_bar}: 1e-2, or "
+        f"twice the one-ulp shift, {one_ulp}); G buffers {buf_err:.3g} of their largest (bar 1e-4); ADA state "
+        f"{ada_err:.3g} (bar 1e-4); on the card G's {len(adam_errs)} update(s) Adam's on their moments within "
+        f"{adam_errs} of the largest (bar 1e-4), the EMA e d + p (1 - d) within 2 ulps: {ema_ok}; parameter and EMA "
+        f"updates against the CPU's {upd_err}, one ulp's {upd_ulp} (measured); metrics {m}")
+    assert all(value_err[k] <= value_bar[k] for k in value_err), (value_err, value_bar)
+    assert all(e <= 1e-4 for e in fed_value_err.values()), fed_value_err
+    assert all(sum(flips[n]) <= flip_bar and 2 * sum(f > 0 for f in flips[n]) <= len(flips[n])
+               for n in ("card", "cpu_fed")), (flips, flip_bar)
+    assert penalty_err <= 1e-2 and all(max(grad_err[k], fed_grad_err[k]) <= grad_bar[k] for k in grad_err), \
+        (penalty_err, grad_err, fed_grad_err, grad_bar)
+    assert buf_err <= 1e-4 and ada_err <= 1e-4 and adam_err <= 1e-4 and ema_ok, (buf_err, ada_err, adam_errs, ema_ok)
+    return {"iteration": it, "value_err": value_err, "value_bar": value_bar, "one_ulp_value_shift": one_ulp_value,
+            "raydrop_flips": flips, "y_fake_err_per_sample": y_fake_err, "fed_value_err": fed_value_err,
+            "penalty_err": penalty_err, "grad_err": grad_err, "fed_grad_err": fed_grad_err,
+            "one_ulp_grad_shift": one_ulp, "grad_bar": grad_bar, "buffer_err": buf_err, "ada_err": ada_err,
+            "adam_formula_err": adam_errs, "update_err": upd_err, "one_ulp_update_shift": upd_ulp, "metrics": m,
+            "cpu_steps_s": cpu_s}
 
 
 def train_bf16_vs_fp32(dev):
@@ -1476,6 +1597,272 @@ def phase_train(dev, smi):
                     "rates": rates, "nvidia_smi": smi}
 
 
+# the GAN command lines: a fabricated KITTI Raw tree (train frames of odometry sequence 00's
+# drive, test frames of a city drive outside train/val), 64 rings x 2048 azimuths a frame
+CLI_TRAIN_SEQ, CLI_TEST_SEQ = "2011_10_03_drive_0027_sync", "2011_09_26_drive_0001_sync"
+CLI_TRAIN_FRAMES, CLI_TEST_FRAMES, CLI_RINGS, CLI_AZIMUTHS = 32, 64, 64, 2048
+CLI_SPLIT, CLI_ITERS = 8, 16  # train 1-8 and checkpoint, then resume to 16 (R1 at 16, ADA at 4, 8, 12, 16)
+CLI_WINDOW = (9, 15)  # the resumed run's iterations timed: no R1, no checkpoint
+CLI_METRICS = "swd,jsd,1nna-cd,1nna-emd,fpd,kpd"
+CLI_PL_IT = 1_000_004  # bf16 B=128 with pl 2 (lazy 4): PL + ADA, no R1, warmup faded; it adds 16 a step
+PL_K1 = 18  # a PL phase's G forwards (eval, then train from w): 9 bias-act sites each
+
+
+def fabricated_scan(rng):
+    """One ring-ordered 64-beam scan (x, y, z, intensity): each ring starts just inside the
+    first quadrant and wraps once, as scan unfolding reads a spinning LiDAR; ranges of
+    2-100 m (some beyond the 80 m limit) and 8% of the returns missing (never a ring's
+    first, which marks the ring)."""
+    H, W = CLI_RINGS, CLI_AZIMUTHS
+    elev = np.deg2rad(3.0 - 28.0 * np.arange(H) / (H - 1))[:, None]
+    phis = np.linspace(0.003, 2 * np.pi - 0.003, W)[None, :]
+    r = 2.0 + 98.0 * rng.rand(H, W) ** 2
+    pts = np.stack([r * np.cos(elev) * np.cos(phis), r * np.cos(elev) * np.sin(phis),
+                    r * np.sin(elev) * np.ones_like(phis), rng.rand(H, W)], axis=-1)
+    keep = rng.rand(H, W) > 0.08
+    keep[:, 0] = True
+    return pts[keep].astype(np.float32)
+
+
+def fabricate_kitti(root: Path, seed=0):
+    rng = np.random.RandomState(seed)
+    for seq, n in ((CLI_TRAIN_SEQ, CLI_TRAIN_FRAMES), (CLI_TEST_SEQ, CLI_TEST_FRAMES)):
+        d = root / seq[:10] / seq / "velodyne_points" / "data"
+        d.mkdir(parents=True)
+        for i in range(n):
+            fabricated_scan(rng).tofile(d / f"{i:010d}.bin")
+
+
+def payload_equal(a, b, where="state"):
+    """Names of the tensors and values that differ between two checkpoint state payloads."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [where]
+        return [w for k in a for w in payload_equal(a[k], b[k], f"{where}.{k}")]
+    if torch.is_tensor(a):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [where]
+    return [] if a == b else [where]
+
+
+class StepWindow:
+    """Wraps Trainer.step while a CLI runs: synchronizes the card before iteration
+    `first` and after iteration `last` and times that window on the host clock; with
+    `profile`, torch.profiler records the window, and `busy_ms` is the union of the
+    device's kernel and copy intervals in it."""
+
+    def __init__(self, first, last, profile=False):
+        self.first, self.last, self.profile = first, last, profile
+        self.ms = self.busy_ms = None
+
+    def __enter__(self):
+        self._orig = Trainer.step
+        window = self
+
+        def step(tr, state, batch, iteration, **kwargs):
+            if iteration == window.first:
+                torch.cuda.synchronize()
+                if window.profile:
+                    window._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    window._prof.start()
+                window._t0 = time.perf_counter()
+            m = window._orig(tr, state, batch, iteration, **kwargs)
+            if iteration == window.last:
+                torch.cuda.synchronize()
+                window.ms = 1e3 * (time.perf_counter() - window._t0)
+                if window.profile:
+                    window._prof.stop()
+                    spans = sorted((e.time_range.start, e.time_range.end) for e in window._prof.events()
+                                   if e.device_type == DeviceType.CUDA)
+                    busy, end = 0.0, -math.inf
+                    for a, b in spans:  # the union of the intervals (the copy stream overlaps the compute)
+                        busy += max(0.0, b - max(a, end))
+                        end = max(end, b)
+                    window.busy_ms = busy / 1e3
+            return m
+
+        Trainer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        Trainer.step = self._orig
+
+
+def loader_ms(root: Path):
+    """Host ms of the training loader (cache: ram, 4 threads) per batch of 128 at 64x512:
+    the first batch (every frame projected once), and the mean of the next five (the
+    cache serves them); and ms of one frame's projection + resize."""
+    ds = KITTIRaw(str(root), "train", shape=(64, 512), min_depth=1.45, max_depth=80.0, prune_missing=True, cache="ram")
+    one = KITTIRaw(str(root), "train", shape=(64, 512), min_depth=1.45, max_depth=80.0, prune_missing=True)
+    t0 = time.perf_counter()
+    for i in range(4):
+        one[i]
+    frame_ms = 1e3 * (time.perf_counter() - t0) / 4
+    it = iter(Prefetcher(ds, B_WIDE, InfiniteSampler(len(ds), seed=0), num_workers=4))
+    t0 = time.perf_counter()
+    next(it)
+    t1 = time.perf_counter()
+    for _ in range(5):
+        next(it)
+    t2 = time.perf_counter()
+    it.close()
+    return {"first_batch_ms": 1e3 * (t1 - t0), "cached_batch_ms": 1e3 * (t2 - t1) / 5, "frame_ms": frame_ms}
+
+
+def pl_rates(dev):
+    """bf16 B=128 with pl 2: ms of the PL step (PL + ADA) beside the steady step, both
+    warmup faded, CUDA events; the PL step's launches and peak GiB."""
+    cfg = full_train_cfg(True)
+    cfg["training"]["loss"]["pl"] = 2
+    tr = Trainer(cfg, device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    batch = train_batch(tr, 0)
+    assert tr.schedule(CLI_PL_IT).do_pl and not tr.schedule(CLI_PL_IT).do_r1 and not tr.schedule(STEADY_IT).do_pl
+    read_and_reset(CHAIN_COUNTERS)
+    m = tr.step(st, batch, CLI_PL_IT)
+    launches = read_and_reset(CHAIN_COUNTERS)
+    want = dict(STEP_LAUNCHES[False], fused_bias_act=STEP_LAUNCHES[False]["fused_bias_act"] + PL_K1)
+    assert launches == want, (launches, want)
+    metrics = {k: float(v) for k, v in m.items()}
+    assert all(math.isfinite(v) for v in metrics.values()) and metrics["loss/G/path_length"] > 0, metrics
+    counter = iter(range(1, 10**6))
+    torch.cuda.reset_peak_memory_stats()
+    pl_ms = cuda_ms(lambda: tr.step(st, batch, CLI_PL_IT + 16 * next(counter)), reps=2, repeats=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady_ms = cuda_ms(lambda: tr.step(st, batch, STEADY_IT + 48 * next(counter)), reps=2, repeats=3)
+    rec = {"pl_step_ms": pl_ms, "steady_step_ms": steady_ms, "pl_peak_gib": peak, "launches": launches,
+           "metrics": metrics}
+    log("cli", f"bf16 B=128, pl 2: PL step (PL + ADA) {pl_ms:.3f} ms, steady step {steady_ms:.3f} ms in the same "
+        f"call, peak {peak:.2f} GiB; PL step launches {launches}; {metrics}")
+    del tr, st
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_cli(dev, smi, bare_step_rate):
+    """The port's command lines in process, through main(argv), at full width and depth."""
+    import tempfile
+
+    from dusty_gan_v2_tpu_torch.cli import test_gan, train_gan
+    from dusty_gan_v2_tpu_torch.pretrained import autoload_ckpt
+    from dusty_gan_v2_tpu_torch.training.checkpoint import load_checkpoint, state_payload
+    from dusty_gan_v2_tpu_torch.utils.config import load_config, save_config
+
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fabricate_kitti(tmp / "kitti_raw")
+        rec["fabricate_s"] = time.perf_counter() - t0
+        cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v2_bf16.yaml"))
+        cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+        ck = cfg.training.checkpoint
+        ck.save_stats, ck.save_model, ck.validation = 4, CLI_SPLIT, 10**9
+        B = int(cfg.training.batch_size)
+        paths = {}
+        for name, iters in (("first", CLI_SPLIT), ("full", CLI_ITERS)):
+            cfg.training.total_kimg = iters * B / 1e3
+            paths[name] = tmp / f"gan_{name}.yaml"
+            save_config(cfg, str(paths[name]))
+        log_dir = tmp / "logs"
+        args = ["--num_workers", "4", "--device", str(dev)]
+
+        read_and_reset(CHAIN_COUNTERS)
+        t0 = time.perf_counter()
+        _, saved = train_gan.main(["--config", str(paths["first"]), "--log_dir", str(log_dir / "a")] + args)
+        torch.cuda.synchronize()
+        rec["first_run_s"] = time.perf_counter() - t0
+        first = read_and_reset(CHAIN_COUNTERS)
+        want_first = {k: CLI_SPLIT * v for k, v in STEP_LAUNCHES[False].items()}
+        log("cli", f"train_gan, bf16 B=128, iterations 1-{CLI_SPLIT}: {rec['first_run_s']:.2f} s (process start "
+            f"to checkpoint, first calls included); launches {first} (want {want_first})")
+        assert first == want_first, (first, want_first)
+        mid = log_dir / "a" / "models" / f"checkpoint_{CLI_SPLIT * B:010d}.ckpt"
+
+        # the state loaded on resume equals the state saved, bit for bit
+        template = Trainer(load_config(str(paths["full"])), device=dev, seed=0).init_state(seed=5)
+        _, loaded, _, num_imgs = load_checkpoint(str(mid), template)
+        differ = payload_equal(state_payload(saved), state_payload(loaded))
+        log("cli", f"checkpoint at {num_imgs} images: {mid.stat().st_size / 2**20:.1f} MiB; loaded state equals "
+            f"the saved one bit for bit: {not differ} {differ[:5]}")
+        assert num_imgs == CLI_SPLIT * B and loaded.step == CLI_SPLIT and not differ, differ
+        del saved, loaded, template
+        torch.cuda.empty_cache()
+
+        with StepWindow(*CLI_WINDOW) as window:
+            t0 = time.perf_counter()
+            _, final_state = train_gan.main(["--config", str(paths["full"]), "--log_dir", str(log_dir / "b"),
+                                             "--resume", str(mid)] + args)
+            torch.cuda.synchronize()
+            rec["resume_run_s"] = time.perf_counter() - t0
+        second = read_and_reset(CHAIN_COUNTERS)
+        want_second = {k: (CLI_ITERS - CLI_SPLIT - 1) * v + STEP_LAUNCHES[True][k]
+                       for k, v in STEP_LAUNCHES[False].items()}
+        n_win = CLI_WINDOW[1] - CLI_WINDOW[0] + 1
+        rec["cli_window_ms_per_iter"] = window.ms / n_win
+        rec["cli_imgs_per_s"] = 1e3 * B * n_win / window.ms
+        rec["bare_step_imgs_per_s"] = bare_step_rate
+        rows = [json.loads(line) for line in (log_dir / "b" / "stats.jsonl").read_text().splitlines()]
+        log("cli", f"train_gan --resume, iterations {CLI_SPLIT + 1}-{CLI_ITERS}: {rec['resume_run_s']:.2f} s; "
+            f"iterations {CLI_WINDOW[0]}-{CLI_WINDOW[1]} {window.ms:.1f} ms = {rec['cli_window_ms_per_iter']:.3f} ms an "
+            f"iteration, {rec['cli_imgs_per_s']:.1f} imgs/s (phase 9's bare steady step: {bare_step_rate:.1f}); "
+            f"launches {second} (want {want_second}); stats rows {rows}")
+        assert second == want_second, (second, want_second)
+        assert final_state.step == CLI_ITERS and [r["iteration"] for r in rows] == [12, 16]
+        assert all(math.isfinite(v) for r in rows for v in r.values()), rows
+        assert "loss/D/gradient_penalty" in rows[-1] and "stats/ada_rt" in rows[-1], rows
+        rec["stats"], rec["launches"] = rows, {k: first[k] + second[k] for k in first}
+        del final_state
+        torch.cuda.empty_cache()
+
+        # the idle share: the device's busy time in the same window of a second resumed run,
+        # under the profiler, over the unprofiled window (the profiler's host work stretches
+        # its own window; the kernels' device intervals are the same work)
+        with StepWindow(*CLI_WINDOW, profile=True) as pwin:
+            train_gan.main(["--config", str(paths["full"]), "--log_dir", str(log_dir / "c"), "--resume", str(mid)]
+                           + args)
+        read_and_reset(CHAIN_COUNTERS)
+        rec["profiled_window_ms"], rec["device_busy_ms"] = pwin.ms, pwin.busy_ms
+        rec["profiler_stretch"] = pwin.ms / window.ms
+        rec["device_idle_share"] = max(0.0, 1.0 - pwin.busy_ms / window.ms)
+        rec["profiled_idle_share"] = max(0.0, 1.0 - pwin.busy_ms / pwin.ms)
+        log("cli", f"profiled resumed run, iterations {CLI_WINDOW[0]}-{CLI_WINDOW[1]}: {pwin.ms:.1f} ms "
+            f"({rec['profiler_stretch']:.3f} x the unprofiled {window.ms:.1f} ms), device busy {pwin.busy_ms:.1f} ms "
+            f"(union of kernel and copy intervals): idle share {rec['device_idle_share']:.3f} of the unprofiled "
+            f"window ({rec['profiled_idle_share']:.3f} of the profiled one)")
+        torch.cuda.empty_cache()
+
+        final = log_dir / "b" / "models" / f"checkpoint_{CLI_ITERS * B:010d}.ckpt"
+        ckpt = autoload_ckpt(str(final), dev)
+        assert ckpt["step"] == CLI_ITERS * B and ckpt["state"]["iteration"] == CLI_ITERS
+        del ckpt
+
+        rec["loader"] = loader_ms(tmp / "kitti_raw")
+        log("cli", f"loader, B=128 at 64x512, 4 threads, host ms: {rec['loader']}")
+
+        rec["pl_card_vs_cpu"] = train_card_vs_cpu(dev, it=36, pl=2, label="cli-pl")
+        rec["pl_rates"] = pl_rates(dev)
+
+        out = tmp / "scores.json"
+        fps_cuda.launches = emd_cuda.launches = 0
+        read_and_reset(CHAIN_COUNTERS)
+        t0 = time.perf_counter()
+        scores, stages = test_gan.main([
+            "--ckpt_path", str(final), "--metrics", CLI_METRICS, "--num_samples", str(N_CLOUDS),
+            "--num_subsample", str(N_CLOUDS), "--pointnet_ckpt", "random", "--out", str(out), "--device", str(dev),
+        ])
+        rec["test_gan_s"] = time.perf_counter() - t0
+        eval_launches = {"fused_bias_act": read_and_reset(CHAIN_COUNTERS)["fused_bias_act"], "fps": fps_cuda.launches,
+                         "emd": emd_cuda.launches}
+        written = json.loads(out.read_text())
+        log("cli", f"test_gan --metrics {CLI_METRICS}, {N_CLOUDS} + {N_CLOUDS} clouds: {rec['test_gan_s']:.2f} s; "
+            f"seconds per stage {stages}; launches {eval_launches}; scores {scores}")
+        assert written == scores and all(math.isfinite(v) for v in scores.values()), scores
+        assert {"jsd", "fpd", "kpd"} <= set(scores) and any(k.endswith("-emd") for k in scores), scores
+        assert eval_launches == {"fused_bias_act": 9, "fps": 3, "emd": 48}, eval_launches
+        rec.update(test_gan_stage_s=stages, test_gan_scores=scores, test_gan_launches=eval_launches)
+    return rec
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -1494,9 +1881,12 @@ def main():
     k4["launches"], k5["launches"] = critic_launches["fused_chain_fwd"], critic_launches["fused_chain_bwd"]
     critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
     train_launches, train_rec = phase_train(dev, smi)
-    # K1, K4 and K5 are on this slice's main path, the training step: bench.py's steady step
-    k1["launches"] = train_launches["fused_bias_act"]
-    k4["launches"], k5["launches"] = train_launches["fused_chain_fwd"], train_launches["fused_chain_bwd"]
+    cli_rec = phase_cli(dev, smi, train_rec["rates"][0]["imgs_per_s"])
+    # this slice's main path is the command lines: K1, K4 and K5 over train_gan's 16 iterations
+    # (8, a checkpoint, 8 resumed), K2 and K3 in test_gan
+    k1["launches"] = cli_rec["launches"]["fused_bias_act"]
+    k4["launches"], k5["launches"] = cli_rec["launches"]["fused_chain_fwd"], cli_rec["launches"]["fused_chain_bwd"]
+    k2["launches"], k3["launches"] = cli_rec["test_gan_launches"]["fps"], cli_rec["test_gan_launches"]["emd"]
     ks = [k1, k2, k3, k4, k5]
 
     record = {
@@ -1504,7 +1894,7 @@ def main():
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
-        "critic_rates": critic_rates, "train": train_rec,
+        "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

@@ -1,0 +1,227 @@
+"""Train a DUSty v2 LiDAR range-image GAN on KITTI Raw (counterpart of train_gan.py).
+
+    python -m dusty_gan_v2_tpu_torch.cli.train_gan --config configs/gans/dusty_v2_bf16.yaml \
+        [--resume <checkpoint>] [--log_dir DIR] [--dry_run] [--device cuda|cpu]
+
+The loop: KITTI Raw frames through the threaded loader and the device prefetcher (only
+the depth plane ships, in dataset.upload_dtype; the step rebuilds the mask as
+depth > 0), one `Trainer.step` per iteration, the step's metrics kept on the device
+until the training.checkpoint.save_stats tick and then brought to the host in one
+transfer, FPD/KPD validation every `validation` iterations when a PointNet is given,
+side samples every `save_image` iterations (written as arrays to <log_dir>/images),
+and a checkpoint every `save_model` iterations and at the last. Scalars keep the JAX
+CLI's names; they go to stdout and to <log_dir>/stats.jsonl.
+
+Every draw is keyed by (seed, iteration): the step's by fold_seed(seed, iteration),
+the side samples' by fold_seed(seed, SIDE, 2i + 1) and (seed, SIDE, 2i), and a resumed
+run skips the sampler's indices of the iterations done, so that it trains on what the
+uninterrupted run would have. imgs/s counts the iterations of this run only.
+Not ported yet: TensorBoard and its image panels, --distributed and orbax checkpoints.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import itertools
+import json
+import time
+from collections import defaultdict, deque
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..datasets.kitti import DevicePrefetcher, InfiniteSampler, KITTIRaw, Prefetcher, to_device
+from ..evaluation import features
+from ..geometry import CoordBridge
+from ..metrics import build_pointnet, compute_frechet_distance, compute_squared_mmd
+from ..parallel import PerSampleStream, fold_seed
+from ..training import Trainer, fetch_reals
+from ..training.checkpoint import load_checkpoint, save_checkpoint
+from ..utils import init_random_seed, resolve_device
+from ..utils.config import load_config, save_config
+
+__all__ = ["main", "validation_fpd_kpd", "SIDE", "VALIDATION"]
+
+# fold_seed domains of the draws outside the step (the step's own are (seed, iteration))
+SIDE, VALIDATION, FIXED_Z = 1 << 32, (1 << 32) + 1, (1 << 32) + 2
+
+
+def validation_fpd_kpd(trainer: Trainer, state, loader_factory, pointnet, real_feats_cache: Dict,
+                       num_samples: int = 10_000) -> Dict[str, float]:
+    """FPD and KPD of PointNet features of G_ema's samples against the training split's
+    (the real features are computed once and kept in real_feats_cache)."""
+    coord = CoordBridge(*trainer.resolution, trainer.min_depth, trainer.max_depth, angle=trainer.angle,
+                        device=trainer.device)
+    if real_feats_cache.get("feats") is None:
+        feats = []
+        for batch in loader_factory():
+            host = {k: batch[k] for k in ("depth", "mask")}
+            reals = fetch_reals(host, trainer.min_depth, trainer.max_depth, trainer.raydrop_const, trainer.device)
+            feats.append(features(reals["image"], coord, pointnet).cpu())
+        real_feats_cache["feats"] = torch.cat(feats).numpy()
+    B = int(trainer.cfg["validation"]["batch_size"])
+    gen = torch.Generator(device=trainer.device).manual_seed(fold_seed(trainer.seed, VALIDATION))
+    fake = []
+    for done in range(0, num_samples, B):
+        z = torch.randn((min(B, num_samples - done), trainer.z_dim), generator=gen, device=trainer.device)
+        fake.append(features(trainer.sample(state, z, generator=gen)["image"], coord, pointnet))
+    fake = torch.cat(fake).cpu().numpy()
+    real = real_feats_cache["feats"]
+    k = num_samples // 1000
+    return {
+        f"pointcloud/frechet_distance_{k}k": compute_frechet_distance(fake, real),
+        f"pointcloud/squared_mmd_{k}k": compute_squared_mmd(fake, real),
+    }
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--resume", default=None)
+    parser.add_argument("--log_dir", default=None)
+    parser.add_argument("--dry_run", action="store_true")
+    parser.add_argument("--num_workers", type=int, default=4)
+    parser.add_argument("--pointnet_ckpt", default=None,
+                        help="cls_model_39.pth for FPD/KPD validation, or 'random' (seeded weights: timing only)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of steps 20-25 of this run into DIR")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None):
+    """Runs the training; returns (trainer, state) at the end."""
+    args = parse_args(argv)
+    cfg = load_config(args.config)
+    if args.dry_run:
+        print(json.dumps(cfg.to_dict(), indent=2, default=str))
+        return None
+    device = resolve_device(args.device)
+    seed = int(cfg.training.random_seed)
+    init_random_seed(seed)
+    trainer = Trainer(cfg, device=device, seed=seed)
+    B = trainer.batch_size
+    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}) | "
+          f"batch {B}", flush=True)
+
+    if args.log_dir is None:
+        stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        arch = f"{cfg.model.generator.arch}+{cfg.model.discriminator.arch}"
+        log_dir = Path("logs/gans") / cfg.dataset.name / arch / stamp
+    else:
+        log_dir = Path(args.log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    save_config(cfg, str(log_dir / "config.yaml"))
+
+    state = trainer.init_state(seed)
+    start_iter = 0
+    if args.resume:
+        _, state, _, num_imgs = load_checkpoint(args.resume, state)
+        start_iter = num_imgs // B
+        print(f"resumed from {args.resume} at iteration {start_iter:,}", flush=True)
+
+    ds = cfg.dataset
+    dataset = KITTIRaw(
+        root=ds.root, split="train", shape=trainer.resolution, min_depth=ds.min_depth, max_depth=ds.max_depth,
+        flip=bool(ds.get("flip", False)), prune_missing=bool(ds.get("prune_missing", False)), cache=ds.get("cache"),
+    )
+    # the same index stream as the uninterrupted run: a resumed run skips what it consumed
+    sampler = itertools.islice(iter(InfiniteSampler(len(dataset), seed=int(cfg.random_seed))), start_iter * B, None)
+    loader = iter(Prefetcher(dataset, B, sampler, num_workers=args.num_workers))
+    up_dtype = np.dtype(ds.get("upload_dtype", "float32"))
+    dev_loader = DevicePrefetcher(
+        loader, lambda host: {"depth": to_device(host["depth"].astype(up_dtype, copy=False), device)}, device, depth=2
+    )
+
+    pointnet = None
+    if args.pointnet_ckpt:
+        random_weights = args.pointnet_ckpt == "random"
+        pointnet = build_pointnet(device, state_dict_path=None if random_weights else args.pointnet_ckpt)
+    real_feats_cache: Dict = {}
+
+    total_iters = int(cfg.training.total_kimg * 1e3 / B)
+    ckpt_cfg = cfg.training.checkpoint
+    moving = defaultdict(lambda: deque(maxlen=100))
+    z_fixed = torch.randn(
+        (8, trainer.z_dim), generator=torch.Generator(device=device).manual_seed(fold_seed(seed, FIXED_Z)),
+        device=device,
+    )
+    side = lambda *fold: torch.Generator(device=device).manual_seed(fold_seed(seed, SIDE, *fold))  # noqa: E731
+    stats_file = open(log_dir / "stats.jsonl", "a")
+    prof = None
+    pending = []
+    t_start = time.time()
+    try:
+        for i in range(start_iter + 1, total_iters + 1):
+            if args.profile and i - start_iter == 20:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            batch = next(dev_loader)
+            pending.append(trainer.step(state, batch, i))
+            if prof is not None and i - start_iter == 25:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                prof.stop()
+                Path(args.profile).mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(Path(args.profile) / "trace.json"))
+                print(f"torch.profiler trace written to {args.profile}", flush=True)
+                prof = None
+            num_imgs = i * B
+
+            if i % int(ckpt_cfg.save_stats) == 0 or i == total_iters:
+                # one device -> host transfer for every metric since the last tick
+                keys = [k for m in pending for k in m]
+                values = torch.stack([v.detach().float().reshape(()) for m in pending for v in m.values()]).tolist()
+                for k, v in zip(keys, values):
+                    moving[k].append(v)
+                pending.clear()
+                ips = B * (i - start_iter) / (time.time() - t_start)
+                row = {"iteration": i, "num_imgs": num_imgs, "stats/imgs_per_sec": ips}
+                row.update({k: float(np.mean(dq)) for k, dq in moving.items()})
+                stats_file.write(json.dumps(row) + "\n")
+                stats_file.flush()
+                print(f"iter {i:>8}/{total_iters} imgs {num_imgs:>10,} {ips:8.1f} imgs/s "
+                      + " ".join(f"{k.split('/')[-1]}={np.mean(v):.3f}" for k, v in list(moving.items())[:4]),
+                      flush=True)
+
+            if i % int(ckpt_cfg.save_image) == 0:
+                # augmented reals at the current ADA p and G_ema's samples on the fixed z
+                reals_aug = trainer.augment_reals(
+                    state, {"depth": batch["depth"][:8]}, i, stream=PerSampleStream(8, side(2 * i + 1), device)
+                )
+                fakes = trainer.sample(state, z_fixed, generator=side(2 * i))
+                out = {"real_aug": reals_aug, **{k: fakes[k] for k in ("image", "image_orig", "raydrop_logit",
+                                                                        "raydrop_mask")}}
+                (log_dir / "images").mkdir(exist_ok=True)
+                np.savez_compressed(log_dir / "images" / f"step_{num_imgs:010d}.npz",
+                                    **{k: v.float().cpu().numpy() for k, v in out.items()})
+
+            if pointnet is not None and i % int(ckpt_cfg.validation) == 0:
+                def loader_factory():
+                    return iter(Prefetcher(dataset, int(cfg.validation.batch_size), num_workers=args.num_workers))
+
+                scores = validation_fpd_kpd(trainer, state, loader_factory, pointnet, real_feats_cache)
+                stats_file.write(json.dumps({"iteration": i, "num_imgs": num_imgs,
+                                             **{"score/" + k: v for k, v in scores.items()}}) + "\n")
+                stats_file.flush()
+                print(f"iter {i:>8} " + " ".join(f"{k}={v:.4f}" for k, v in scores.items()), flush=True)
+
+            if i % int(ckpt_cfg.save_model) == 0 or i == total_iters:
+                path = log_dir / "models" / f"checkpoint_{num_imgs:010d}.ckpt"
+                save_checkpoint(str(path), cfg, state, trainer.angle, num_imgs)
+    finally:
+        stats_file.close()
+        loader.close()  # stops the loader's thread
+        if prof is not None:
+            prof.stop()
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

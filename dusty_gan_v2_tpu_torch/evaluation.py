@@ -36,7 +36,7 @@ from .sampling import sample
 from .utils import resolve_device, sigmoid_to_tanh, tanh_to_sigmoid
 
 __all__ = [
-    "DEFAULT_METRICS", "Outputs", "to_outputs", "collect_generated", "reals_to_outputs", "evaluate",
+    "DEFAULT_METRICS", "Outputs", "features", "to_outputs", "collect_generated", "reals_to_outputs", "evaluate",
 ]
 
 # the protocol's metric list (test_gan.py's default): 1nna-emd is the expensive stage
@@ -55,22 +55,33 @@ class Outputs(NamedTuple):
     features: torch.Tensor
 
 
+def _images_to_points(img_tanh: torch.Tensor, coord: CoordBridge):
+    inv = torch.clamp(tanh_to_sigmoid(img_tanh), 0, 1)
+    return inv, coord.convert(inv, "inv_depth_norm", "point_set") / coord.max_depth
+
+
+def _pointnet_features(pts: torch.Tensor, pointnet) -> torch.Tensor:
+    if pointnet is None:
+        return pts.new_zeros((pts.shape[0], 0))
+    return torch.cat([
+        pointnet(pts[i : i + _POINTNET_BATCH].transpose(1, 2)) for i in range(0, pts.shape[0], _POINTNET_BATCH)
+    ])
+
+
+@torch.no_grad()
+def features(img_tanh: torch.Tensor, coord: CoordBridge, pointnet) -> torch.Tensor:
+    """Generator images in [-1, 1] -> the full clouds' PointNet features (B, F)."""
+    return _pointnet_features(_images_to_points(img_tanh, coord)[1], pointnet)
+
+
 @torch.no_grad()
 def to_outputs(
     img_tanh: torch.Tensor, coord: CoordBridge, pointnet=None, num_points: int = 2048
 ) -> Outputs:
     """Generator images in [-1, 1] -> Outputs: clipped inverse depth, the full cloud's
     PointNet features, and the cloud FPS-downsampled to `num_points`."""
-    inv = torch.clamp(tanh_to_sigmoid(img_tanh), 0, 1)
-    pts = coord.convert(inv, "inv_depth_norm", "point_set") / coord.max_depth
-    if pointnet is None:
-        feats = pts.new_zeros((pts.shape[0], 0))
-    else:
-        feats = torch.cat([
-            pointnet(pts[i : i + _POINTNET_BATCH].transpose(1, 2))
-            for i in range(0, pts.shape[0], _POINTNET_BATCH)
-        ])
-    return Outputs(inv, downsample_point_clouds(pts, num_points), feats)
+    inv, pts = _images_to_points(img_tanh, coord)
+    return Outputs(inv, downsample_point_clouds(pts, num_points), _pointnet_features(pts, pointnet))
 
 
 @torch.no_grad()

@@ -354,17 +354,19 @@ class Generator(nn.Module, GeneratorMixin):
         pe_cache=None,
         train: bool = False,
         aug_shift: Optional[torch.Tensor] = None,
+        input_w: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D), angle (1, 2, H, W) -> dict of image, raydrop_logit, w,
-        raydrop_mask, image_orig. Without `gumbel_noise` the logistic noise is drawn
-        from `generator`, and so is the train-mode azimuth shift without `aug_shift`
-        (U[0, 1) per sample, drawn first)."""
+        raydrop_mask, image_orig. With `input_w`, z is the styles (B, num_styles, D)
+        and the mapping network does not run. Without `gumbel_noise` the logistic noise
+        is drawn from `generator`, and so is the train-mode azimuth shift without
+        `aug_shift` (U[0, 1) per sample, drawn first)."""
         syn = self.synthesis_network
         if train and syn.aug_coords and aug_shift is None:
             if generator is None:
                 raise ValueError("pass aug_shift or a torch.Generator to draw it")
             aug_shift = torch.rand(z.shape[0], generator=generator, device=z.device)
-        w = self._style(z, syn.num_styles, truncation_psi, train)
+        w = self._style(z, syn.num_styles, truncation_psi, train, input_w)
         o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift)
         o["w"] = w
         if gumbel_noise is None:

@@ -12,6 +12,11 @@ sides the same numbers.
 Every method takes the shape of one sample's draw; the batch is the stream's `n`, and
 `with_batch(n)` gives a stream of another batch over the same source (the trainer's
 concatenated reals and fakes).
+
+`fold_seed(seed, *data)` derives a seed from a run's seed and integers, as the JAX
+package folds an iteration into its run key: the trainer seeds each step's generator
+with fold_seed(seed, iteration), so that a step's draws do not depend on the steps
+before it (a resumed run draws what the uninterrupted one drew).
 """
 
 from __future__ import annotations
@@ -21,7 +26,26 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["global_ids", "PerSampleStream", "ReplayStream"]
+__all__ = ["global_ids", "fold_seed", "PerSampleStream", "ReplayStream"]
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A 64-bit seed from `seed` and each int of `data` in turn, through splitmix64's
+    mixer: fold_seed(s, a, b) = mix(mix(mix(s) ^ a) ^ b). Nearby inputs give unrelated
+    seeds."""
+    x = _splitmix64(int(seed) & _MASK64)
+    for d in data:
+        x = _splitmix64(x ^ (int(d) & _MASK64))
+    return x
 
 
 def global_ids(n_local: int, offset: int = 0, rank: int = 0, device=None) -> torch.Tensor:

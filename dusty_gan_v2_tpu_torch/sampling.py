@@ -20,6 +20,7 @@ import torch
 from .geometry import CoordBridge, resize_angle_lut
 from .metrics import downsample_point_clouds
 from .utils import resolve_device, tanh_to_sigmoid
+from .utils.config import load_config
 
 __all__ = [
     "ANGLE_FILE", "full_gen_cfg", "full_disc_cfg", "full_train_cfg", "load_angle", "make_coord_bridge", "sample",
@@ -27,6 +28,7 @@ __all__ = [
 ]
 
 ANGLE_FILE = Path(__file__).resolve().parent.parent / "data" / "coords" / "kitti_raw.npy"
+CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs" / "gans"
 # KITTI Raw depth range (configs/gans/dusty_v2.yaml, dataset.min_depth / max_depth)
 MIN_DEPTH, MAX_DEPTH = 1.45, 80.0
 
@@ -74,60 +76,9 @@ def full_disc_cfg(resolution=(64, 512)) -> dict:
 def full_train_cfg(bf16: bool) -> dict:
     """The "dataset", "training" and "model" sections of configs/gans/dusty_v2_bf16.yaml
     (bf16=True: bfloat16 compute, B=128) or configs/gans/dusty_v2.yaml (float32, B=32),
-    as a dict literal: the port reads no yaml."""
-    cfg = {
-        "dataset": {
-            "name": "kitti_raw", "root": "data/kitti_raw", "min_depth": 1.45, "max_depth": 80, "flip": False,
-            "train": "train", "val": "val", "test": "test", "raydrop_const": -1,
-        },
-        "training": {
-            "random_seed": 0, "total_kimg": 25000, "ema_kimg": 10, "ema_rampup": 0.05, "batch_size": 32,
-            "checkpoint": {"validation": 10000, "save_model": 10000, "save_image": 5000, "save_stats": 1000},
-            "gan_objective": "nsgan",
-            "loss": {"gan": 1, "gp": 1, "pl": 0},
-            "lazy": {"gp": 16, "pl": 4, "ada": 4},
-            "lr": {
-                "generator": {"alpha": 0.002, "beta1": 0, "beta2": 0.99},
-                "discriminator": {"alpha": 0.002, "beta1": 0, "beta2": 0.99},
-            },
-            "augment": {
-                "p_init": 0.0, "p_target": 0.6, "kimg": 500,
-                "policy": {
-                    "lr_flip": 1, "ud_flip": 1, "int_trans": 1, "iso_scale": 1, "frac_trans": 1, "brightness": 1,
-                    "contrast": 1, "luma_flip": 1, "hue": 1, "saturation": 1, "imgfilter": 0, "noise": 0, "cutout": 0,
-                },
-            },
-            "warmup": {"fade_kimg": 200, "blur_init_sigma": 0, "dropout_init_ratio": 0.5},
-        },
-        "model": {
-            "generator": {
-                "arch": "dusty_v2",
-                "compute_dtype": "float32",
-                "mapping_kwargs": {"in_ch": 512, "out_ch": 512, "depth": 2},
-                "synthesis_kwargs": {
-                    "in_ch": 512,
-                    "out_ch": [{"name": "image", "ch": 1, "act": "tanh"}, {"name": "raydrop_logit", "ch": 1, "act": None}],
-                    "ch_base": 32, "ch_max": 512, "resolution": [64, 512], "layers": [2, 2, 2, 2], "ring": True,
-                    "num_fp16_layers": -1, "use_noise": False, "pe_type": "random", "pe_scale_offset": [3, -1],
-                    "aug_coords": True, "aug_coords_blitting": False,
-                },
-                "measurement_kwargs": {"raydrop_const": -1, "gumbel_temperature": 1},
-            },
-            "discriminator": {
-                "arch": "dusty_v2",
-                "layer_kwargs": {
-                    "in_ch": 1, "ring": True, "ch_base": 32, "ch_max": 512, "resolution": [64, 512],
-                    "mbdis_group": 4, "mbdis_feat": 1, "num_fp16_layers": -1, "pre_blur": True,
-                },
-            },
-        },
-    }
-    if bf16:
-        cfg["dataset"].update(cache="ram", upload_dtype="float16")
-        cfg["training"]["batch_size"] = 128
-        cfg["model"]["generator"]["compute_dtype"] = "bfloat16"
-        cfg["model"]["discriminator"]["layer_kwargs"]["compute_dtype"] = "bfloat16"
-    return cfg
+    read with utils/config.py::load_config."""
+    cfg = load_config(str(CONFIG_DIR / ("dusty_v2_bf16.yaml" if bf16 else "dusty_v2.yaml"))).to_dict()
+    return {k: cfg[k] for k in ("dataset", "training", "model")}
 
 
 def load_angle(resolution=(64, 512), device="cuda") -> torch.Tensor:

@@ -3,7 +3,7 @@
 The JAX package carries one pytree through a jitted step; here the state is the live
 modules and optimizers, which `Trainer.step` updates in place: G and its EMA copy
 (parameters and buffers), D, one Adam for each network, the ADA controller, the
-path-length baseline and the iteration count.
+path-length baseline and the iteration count (training/checkpoint.py saves and loads it).
 """
 
 from __future__ import annotations
@@ -26,5 +26,5 @@ class TrainState:
     opt_G: torch.optim.Adam
     opt_D: torch.optim.Adam
     ada: AdaState
-    pl_ema: torch.Tensor  # 0-dim float32 (path-length baseline; PL is not ported)
+    pl_ema: torch.Tensor  # 0-dim float32, the path-length baseline
     step: int = 0  # iterations completed

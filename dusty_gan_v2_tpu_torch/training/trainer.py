@@ -1,5 +1,5 @@
-"""The GAN training step: G adversarial, D adversarial, lazy R1, EMA and the ADA
-controller, with the warmup schedule.
+"""The GAN training step: G adversarial, lazy path-length regularization, D adversarial,
+lazy R1, EMA and the ADA controller, with the warmup schedule.
 
 Counterpart of dusty_gan_v2_tpu/training/trainer.py. The JAX step is one jitted pure
 function of a state pytree; here `Trainer.step` runs the same phases eagerly on the live
@@ -7,6 +7,9 @@ modules of a `TrainState`, in the JAX step's order, each phase a method of its o
 that a caller can compare one phase's loss and gradients before the optimizer:
 
     g_phase   z -> G (train) -> warmup -> ADA -> D -> w_gan * G loss; gradients on G
+    pl_phase  z -> w (G, eval) -> G (train, input_w) -> path lengths |d sum(img * noise) / dw|
+              -> w_pl * mean((len - pl_ema)^2), a double backward; gradients on G, which
+              takes a second Adam step in the iteration
     d_phase   G (train, no autograd; its buffers still update) -> reals ++ fakes through
               warmup + ADA as one batch -> D on each half -> w_gan * D loss; on D
     r1_phase  (w_gp / 2) * R1 with warmup + ADA inside D's input; on D
@@ -15,20 +18,23 @@ that a caller can compare one phase's loss and gradients before the optimizer:
 Adam is torch.optim.Adam with lr * c and betas ** c, c = lazy / (lazy + 1) for the
 network whose regularizer runs lazily, as optax's adam in the JAX step. Every random draw
 comes from a stream (parallel/persample.py), in the JAX step's order: batch-wide from
-the trainer's torch.Generator, or replayed from given arrays (`draws`).
+the trainer's torch.Generator, re-seeded at each step with fold_seed(seed, iteration) as
+the JAX step folds the iteration into its run key, or replayed from given arrays
+(`draws`).
 
 `g_phase_loss`, `d_phase_loss` and `r1_penalty` are the D-side losses as plain functions
 of a discriminator and image batches. Every D call takes the unfused route
 (blur_fuse=False), as every training call of the JAX step does: on the card that is the
 route of the fused chain kernels.
 
-Not ported: path-length regularization (a config with loss.pl > 0 raises), gradient
-accumulation, checkpointing and data parallelism.
+Not ported: data parallelism (training/checkpoint.py and training/accumulation.py hold
+the checkpoint and gradient accumulation).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -39,7 +45,7 @@ from ..augment.ada import AdaptiveAugment
 from ..models import build_discriminator, build_generator, build_pe_cache
 from ..models.loss import gan_loss_d, gan_loss_g
 from ..ops.pad import filter2d
-from ..parallel.persample import PerSampleStream
+from ..parallel.persample import PerSampleStream, fold_seed
 from ..utils import resolve_device, sigmoid_to_tanh
 from .train_state import TrainState
 
@@ -135,6 +141,7 @@ class Schedule(NamedTuple):
     dropout_ratio: float
     blur_kernel: Optional[np.ndarray]
     skip_warmup: bool  # warmup has faded: the warmup op is the identity and draws nothing
+    do_pl: bool
     do_r1: bool
     do_ada: bool
     ema_decay: float
@@ -150,8 +157,8 @@ class Trainer:
     `cfg` is the JAX package's schema as nested dicts, the "dataset", "training" and
     "model" sections of configs/gans/*.yaml (sampling.py::full_train_cfg). `angle` is the
     (1, 2, H, W) laser-angle grid (default: the dataset's LUT at the model's
-    resolution); `seed` seeds the trainer's torch.Generator, the source of the step's
-    draws."""
+    resolution); the step's draws come from the trainer's torch.Generator, seeded at
+    each step with fold_seed(seed, iteration)."""
 
     def __init__(self, cfg: Dict[str, Any], device="cuda", angle: Optional[torch.Tensor] = None, seed: int = 0):
         self.cfg = cfg
@@ -169,10 +176,10 @@ class Trainer:
         self.w_gan = float(loss["gan"])
         self.lazy_gp, self.lazy_pl, self.lazy_ada = int(lazy["gp"]), int(lazy["pl"]), int(lazy["ada"])
         self.w_gp = float(loss["gp"]) * self.lazy_gp if loss.get("gp", 0) > 0 else 0.0
-        if loss.get("pl", 0) > 0:
-            raise NotImplementedError("path-length regularization is not ported yet (set training.loss.pl to 0)")
+        self.w_pl = float(loss["pl"]) * self.lazy_pl if loss.get("pl", 0) > 0 else 0.0
+        c_G = self.lazy_pl / (self.lazy_pl + 1.0) if self.w_pl > 0 else 1.0
         c_D = self.lazy_gp / (self.lazy_gp + 1.0) if self.w_gp > 0 else 1.0
-        self.adam_G = self._adam_kwargs(tr["lr"]["generator"], 1.0)
+        self.adam_G = self._adam_kwargs(tr["lr"]["generator"], c_G)
         self.adam_D = self._adam_kwargs(tr["lr"]["discriminator"], c_D)
 
         self.gan_objective = tr["gan_objective"]
@@ -191,7 +198,8 @@ class Trainer:
                 raise ValueError(f"no angle LUT for dataset {ds['name']!r}; pass angle")
             angle = load_angle(self.resolution, self.device)
         self.angle = angle.to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(fold_seed(self.seed))
         self._pe_cache = None
 
     @staticmethod
@@ -238,6 +246,7 @@ class Trainer:
             dropout_ratio=dropout_ratio,
             blur_kernel=make_blur_kernel(blur_sigma, self.blur_init_sigma),
             skip_warmup=dropout_ratio == 0.0 and blur_sigma == 0.0,
+            do_pl=self.w_pl > 0 and iteration % self.lazy_pl == 0,
             do_r1=self.w_gp > 0 and iteration % self.lazy_gp == 0,
             do_ada=iteration % self.lazy_ada == 0,
             ema_decay=self.ema_decay(iteration),
@@ -254,8 +263,12 @@ class Trainer:
             self._pe_cache = (sig, build_pe_cache(state.G, self.angle))
         return self._pe_cache[1]
 
-    def stream(self, n: Optional[int] = None) -> PerSampleStream:
-        """A stream of draws for n samples (default: the batch) from the trainer's generator."""
+    def stream(self, n: Optional[int] = None, *fold: int) -> PerSampleStream:
+        """A stream of draws for n samples (default: the batch) from the trainer's
+        generator; given `fold` ints, the generator is first seeded with
+        fold_seed(seed, *fold) (the step's stream: fold = (iteration,))."""
+        if fold:
+            self.generator.manual_seed(fold_seed(self.seed, *fold))
         return PerSampleStream(n or self.batch_size, self.generator, self.device)
 
     # ------------------------------------------------------------------ phases
@@ -295,6 +308,36 @@ class Trainer:
             p.grad = g
         _zero_fill_grads(state.G)
         return loss.detach()
+
+    def pl_phase(self, state: TrainState, st) -> torch.Tensor:
+        """The lazy path-length step before its optimizer, on B // 2 samples: styles w of
+        an eval-mode forward (no autograd), then a train-mode forward from w (its buffers
+        update) and the path lengths |d sum(img * noise) / dw| over the style axis,
+        noise ~ N(0, 1 / (H W)). pl_ema moves 0.01 of the way to their mean; the
+        penalty mean((len - pl_ema)^2) is weighted by w_pl and differentiated through
+        the input gradient. Returns the penalty; G's gradients are in .grad and
+        state.pl_ema is the new baseline."""
+        G = state.G
+        sp = st.with_batch(max(self.batch_size // 2, 1))
+        pe_cache = self.pe_cache_for(state)
+        z = sp.normal((self.z_dim,))
+        with torch.no_grad():
+            w = G(z, None, gumbel_noise=sp.logistic((1, *self.resolution)), pe_cache=pe_cache)["w"]
+        noise = sp.normal((1, *self.resolution)) / math.sqrt(float(np.prod(self.resolution)))
+        w = w.detach().requires_grad_(True)
+        shift = sp.uniform() if G.synthesis_network.aug_coords else None
+        img = G(w, None, gumbel_noise=sp.logistic((1, *self.resolution)), pe_cache=pe_cache, train=True,
+                aug_shift=shift, input_w=True)["image"]
+        (gw,) = torch.autograd.grad((img * noise).sum(), w, create_graph=True)
+        lengths = gw.square().sum(dim=-1).sqrt()
+        pl_ema = state.pl_ema + 0.01 * (lengths.mean().detach() - state.pl_ema)
+        penalty = (lengths - pl_ema).square().mean()
+        params = [p for p in G.parameters() if p.requires_grad]
+        for p, g in zip(params, torch.autograd.grad(self.w_pl * penalty, params, allow_unused=True)):
+            p.grad = g
+        _zero_fill_grads(G)
+        state.pl_ema = pl_ema
+        return penalty.detach()
 
     def d_phase(self, state: TrainState, x_real: torch.Tensor, st, sched: Schedule):
         """D's adversarial step before its optimizer: G makes fakes without autograd (its
@@ -350,11 +393,12 @@ class Trainer:
         tensors on the device (no host synchronization). `draws` replaces the trainer's
         generator as the source of every random draw (a parallel.ReplayStream on the
         trainer's device). `on_phase(name, state, values)` is called after each of the
-        "g", "d" and "r1" phases, with its gradients in .grad, before the optimizer
-        steps; values holds the phase's loss (and D's outputs, or the penalty)."""
+        "g", "pl", "d" and "r1" phases, with its gradients in .grad, before the optimizer
+        steps; values holds the phase's loss (and D's outputs, or the penalty and
+        pl_ema)."""
         hook = on_phase or (lambda name, st, values: None)
         sched = self.schedule(iteration)
-        st = (self.stream() if draws is None else draws).with_batch(self.batch_size)
+        st = (self.stream(None, iteration) if draws is None else draws).with_batch(self.batch_size)
         x_real = fetch_reals(batch, self.min_depth, self.max_depth, self.raydrop_const, self.device)["image"]
         if x_real.shape[0] != self.batch_size:
             raise ValueError(f"batch of {x_real.shape[0]}, the config's batch_size is {self.batch_size}")
@@ -364,6 +408,13 @@ class Trainer:
         state.opt_G.step()
         state.G.zero_grad(set_to_none=True)
         m["loss/G/adversarial"] = loss_G / self.w_gan
+
+        if sched.do_pl:
+            m["loss/G/path_length"] = self.pl_phase(state, st)
+            m["loss/G/path_length/baseline"] = state.pl_ema
+            hook("pl", state, {"penalty": m["loss/G/path_length"], "pl_ema": state.pl_ema})
+            state.opt_G.step()
+            state.G.zero_grad(set_to_none=True)
 
         loss_D, y_real, y_fake = self.d_phase(state, x_real, st, sched)
         hook("d", state, {"loss": loss_D, "y_real": y_real, "y_fake": y_fake})
@@ -397,6 +448,6 @@ class Trainer:
     @torch.no_grad()
     def sample(self, state: TrainState, z: torch.Tensor, ema: bool = True, **kwargs) -> Dict[str, torch.Tensor]:
         """An eval-mode forward of G_ema (or G); without gumbel_noise the noise is drawn
-        from the trainer's generator."""
+        from `generator` (default: the trainer's)."""
         kwargs.setdefault("generator", self.generator)
         return (state.G_ema if ema else state.G)(z, self.angle, **kwargs)

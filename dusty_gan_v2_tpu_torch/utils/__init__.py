@@ -1,12 +1,14 @@
-"""Small utilities: range-image value maps, device resolution, float32 guard."""
+"""Small utilities: range-image value maps, device resolution, float32 guard, seeding."""
 
 from __future__ import annotations
 
 import contextlib
+import random
 
+import numpy as np
 import torch
 
-__all__ = ["tanh_to_sigmoid", "sigmoid_to_tanh", "resolve_device", "full_float32"]
+__all__ = ["tanh_to_sigmoid", "sigmoid_to_tanh", "resolve_device", "full_float32", "init_random_seed"]
 
 
 def tanh_to_sigmoid(x):
@@ -49,3 +51,12 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {device}")
     return device
+
+
+def init_random_seed(seed: int) -> None:
+    """Seed Python's `random`, numpy's global generator and torch's default generators
+    (the CPU's and every card's). The training step's own draws come from the trainer's
+    generator, keyed by (seed, iteration)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

@@ -390,10 +390,16 @@ def test_schedule_and_adam_hyperparameters_match_jax(jax_side):
     st = tr.init_state()
     assert st.opt_D.param_groups[0]["betas"] == (0.0, 0.99 ** c) and st.opt_G.param_groups[0]["lr"] == 0.002
     assert all(not p.requires_grad for p in st.G_ema.parameters())
-    bad = _cfg()
-    bad.training.loss.pl = 1
-    with pytest.raises(NotImplementedError):
-        Trainer(bad.to_dict(), device="cpu", angle=torch.zeros(1, 2, *RES))
+    # with PL on (lazy pl 2), G's Adam takes lr * c_G and betas ** c_G, c_G = 2 / 3, and PL
+    # runs where the JAX step runs it
+    pl_cfg = _cfg()
+    pl_cfg.training.loss.pl = 1
+    jt_pl = JTrainer(pl_cfg, mesh=jt.mesh, angle=jt.angle)
+    tr_pl = Trainer(pl_cfg.to_dict(), device="cpu", angle=torch.zeros(1, 2, *RES))
+    assert tr_pl.adam_G["lr"] == pytest.approx(0.002 * 2 / 3) and tr_pl.adam_G["betas"] == (0.0, 0.99 ** (2 / 3))
+    assert tr_pl.w_pl == jt_pl.w_pl == 2.0
+    for it in (0, 1, 2, 3, 4, 1003):
+        assert tr_pl.schedule(it).do_pl == jt_pl.get_step_fn(it, skip_warmup=True)[1] == (it % 2 == 0)
 
 
 @pytest.mark.parametrize("bf16,path", [(False, "configs/gans/dusty_v2.yaml"), (True, "configs/gans/dusty_v2_bf16.yaml")])
