@@ -84,6 +84,24 @@
    Recorded: the CLI's imgs/s over iterations 9-15 beside phase 9's bare step, the
    loader's host ms per batch (first pass and cached), the idle share, the PL step's ms
    and test_gan's seconds per stage.
+11. semseg: the SqueezeSeg command lines in process, through main(argv). The release's
+   frontal layout is fabricated from seed 0 in a temporary directory: 240 GTA frames
+   (64 x 512 x 5) with DUSty v2 drop maps and 64 KITTI frontal val frames (64 x 512 x 6).
+   configs/semseg/sim2real_w_gan_noise_dustyv2_bf16.yaml is read with the port's
+   load_config (SqueezeSegV2 + CAM + CRF-as-RNN, bf16, B=120, focal loss) and changed only
+   in the dataset root, the steps (16 of 50,000) and the cadences (stats every 4,
+   validation and a checkpoint at the end). train_semseg runs, its checkpoint loads equal
+   to the trained state, a second (profiled) run gives the idle share, and test_semseg
+   evaluates the checkpoint without and with --knn, twice in turns: every score finite
+   and in --out. This
+   path launches none of K1-K5 (the counters read 0 after it). Then: one fp32 B=4 step at
+   64 x 512 on the card and on the CPU on injected dropout masks (loss, logits and running
+   statistics 1e-4, gradients 1e-2 of their largest magnitude, or twice the shift one ulp
+   in the weights makes on the CPU where larger), two card updates against the SGD
+   chain's formula on the card's gradients (1e-6), kNN labels equal on the card and the
+   CPU, bf16 against fp32 logits at B=40, and the bare step's rates (fp32 B=40 with TF32
+   off and allowed, bf16 B=40, bf16 B=120 with and without the CRF; device ms, idle share,
+   peak GiB).
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
@@ -1645,27 +1663,29 @@ def payload_equal(a, b, where="state"):
 
 
 class StepWindow:
-    """Wraps Trainer.step while a CLI runs: synchronizes the card before iteration
-    `first` and after iteration `last` and times that window on the host clock; with
-    `profile`, torch.profiler records the window, and `busy_ms` is the union of the
-    device's kernel and copy intervals in it."""
+    """Wraps `cls.step` (Trainer's, or SemsegTrainer's) while a CLI runs: synchronizes the
+    card before iteration `first` and after iteration `last` and times that window on the
+    host clock; with `profile`, torch.profiler records the window, and `busy_ms` is the
+    union of the device's kernel and copy intervals in it. The iteration is the step's
+    last positional argument."""
 
-    def __init__(self, first, last, profile=False):
-        self.first, self.last, self.profile = first, last, profile
+    def __init__(self, first, last, profile=False, cls=Trainer):
+        self.first, self.last, self.profile, self.cls = first, last, profile, cls
         self.ms = self.busy_ms = None
 
     def __enter__(self):
-        self._orig = Trainer.step
+        self._orig = self.cls.step
         window = self
 
-        def step(tr, state, batch, iteration, **kwargs):
+        def step(tr, *args, **kwargs):
+            iteration = args[-1]
             if iteration == window.first:
                 torch.cuda.synchronize()
                 if window.profile:
                     window._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                     window._prof.start()
                 window._t0 = time.perf_counter()
-            m = window._orig(tr, state, batch, iteration, **kwargs)
+            m = window._orig(tr, *args, **kwargs)
             if iteration == window.last:
                 torch.cuda.synchronize()
                 window.ms = 1e3 * (time.perf_counter() - window._t0)
@@ -1680,11 +1700,11 @@ class StepWindow:
                     window.busy_ms = busy / 1e3
             return m
 
-        Trainer.step = step
+        self.cls.step = step
         return self
 
     def __exit__(self, *exc):
-        Trainer.step = self._orig
+        self.cls.step = self._orig
 
 
 def loader_ms(root: Path):
@@ -1863,6 +1883,317 @@ def phase_cli(dev, smi, bare_step_rate):
     return rec
 
 
+# phase 11, semseg: configs/semseg/sim2real_w_gan_noise_dustyv2_bf16.yaml (SqueezeSegV2 + CAM +
+# CRF, bf16, B=120, focal loss) on frames fabricated from seed 0 at the release's 64 x 512:
+# 240 GTA frames with DUSty v2 drop maps (two batches), 64 KITTI frontal val frames
+SEMSEG_CFG = Path(__file__).resolve().parent / "configs" / "semseg" / "sim2real_w_gan_noise_dustyv2_bf16.yaml"
+SEMSEG_GTA, SEMSEG_VAL, SEMSEG_STEPS = 240, 64, 16
+SEMSEG_WINDOW = (5, 16)  # the CLI's steps timed (stats drains at 8 and 12 inside)
+SEMSEG_BENCH_B = 40  # the batch bench.py times
+SEMSEG_BF16_CAL_BAR = 0.75  # relative L2 of bf16 logits against fp32 on calibrated BN statistics
+SEMSEG_CONFIG = (120, "bfloat16", True, "focal_loss")  # batch, compute dtype, CRF, loss of SEMSEG_CFG
+
+
+def semseg_frame(rng, gta):
+    """One 64 x 512 frontal frame: (x, y, z, intensity, depth, label), GTA's without the
+    intensity and with 3 classes; depths 2-60 m, 15% of the rays missing."""
+    H, W = 64, 512
+    depth = rng.uniform(2.0, 60.0, (H, W)).astype(np.float32)
+    depth[rng.rand(H, W) < 0.15] = 0.0
+    azim = np.linspace(np.pi / 4, -np.pi / 4, W, dtype=np.float32)[None]
+    elev = np.linspace(0.03, -0.4, H, dtype=np.float32)[:, None]
+    label = rng.randint(0, 3 if gta else 4, (H, W)).astype(np.float32)
+    label[depth == 0] = 0
+    planes = [depth * np.cos(elev) * np.cos(azim), depth * np.cos(elev) * np.sin(azim), depth * np.sin(elev)]
+    planes += [depth, label] if gta else [rng.rand(H, W).astype(np.float32), depth, label]
+    return np.stack(planes, axis=-1).astype(np.float32)
+
+
+def fabricate_semseg(root: Path, seed=0):
+    """The release's layout: GTAV/<seq>/*.npy, GTAV_noise_v2/<seq>/*.npy, lidar_2d/*.npy and
+    ImageSet/val.txt."""
+    rng = np.random.RandomState(seed)
+    for d in ("GTAV/seq0", "GTAV_noise_v2/seq0", "lidar_2d", "ImageSet"):
+        (root / d).mkdir(parents=True)
+    for i in range(SEMSEG_GTA):
+        np.save(root / "GTAV" / "seq0" / f"{i:06d}.npy", semseg_frame(rng, True))
+        np.save(root / "GTAV_noise_v2" / "seq0" / f"{i:06d}.npy", rng.uniform(0.6, 1.0, (64, 512)).astype(np.float32))
+    names = [f"2011_09_26_drive_0001_{i:010d}" for i in range(SEMSEG_VAL)]
+    for n in names:
+        np.save(root / "lidar_2d" / f"{n}.npy", semseg_frame(rng, False))
+    (root / "ImageSet" / "val.txt").write_text("\n".join(names) + "\n")
+
+
+def semseg_cfg(root: Path, dtype="bfloat16", use_crf=True):
+    from dusty_gan_v2_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(SEMSEG_CFG))
+    cfg.dataset.root = str(root)
+    cfg.arch.compute_dtype, cfg.arch.use_crf = dtype, use_crf
+    return cfg
+
+
+def semseg_batch(root: Path, B, dev, offset=0):
+    """B GTA items (flip and ray drop as the loader draws them) as the CLI ships them: float
+    planes in float32, label and mask as uint8."""
+    from dusty_gan_v2_tpu_torch.semseg import GTALiDAR_GAN
+
+    ds = GTALiDAR_GAN(root=str(root), shape=(64, 512), flip=True, gan_dir="GTAV_noise_v2")
+    items = [ds[(offset + i) % len(ds)] for i in range(B)]
+    host = {k: np.stack([it[k] for it in items]) for k in ("xyz", "depth", "label", "mask")}
+    host["label"], host["mask"] = host["label"].astype(np.uint8), host["mask"].astype(np.uint8)
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def semseg_trainer(cfg, dev, model=None):
+    from dusty_gan_v2_tpu_torch.cli.train_semseg import build_model
+    from dusty_gan_v2_tpu_torch.semseg.train_step import SemsegTrainer
+
+    return SemsegTrainer(build_model(cfg) if model is None else model, cfg, dev)
+
+
+def grads_dict(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def semseg_card_vs_cpu(dev, root):
+    """One fp32 B=4 step at 64 x 512, TF32 off, on injected dropout masks, on the card and on
+    the CPU from the same weights; a third run on the CPU with every weight one ulp up gives
+    each value's rounding sensitivity. Then two more card steps held to the SGD chain's
+    formula on the card's own gradients."""
+    cfg = semseg_cfg(root, "float32")
+    tr_cpu = semseg_trainer(cfg, "cpu")
+    tr_dev = semseg_trainer(cfg, dev, copy.deepcopy(tr_cpu.model))
+    ulp_model = copy.deepcopy(tr_cpu.model)
+    with torch.no_grad():
+        for p in ulp_model.parameters():
+            p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+    tr_ulp = semseg_trainer(cfg, "cpu", ulp_model)
+    batch = semseg_batch(root, 4, "cpu", offset=7)
+    keep = torch.rand((len(batch["xyz"]), 64, 1, 1), generator=torch.Generator().manual_seed(3)) < 0.5
+    runs = {}
+    for name, tr, dv in (("card", tr_dev, dev), ("cpu", tr_cpu, "cpu"), ("ulp", tr_ulp, "cpu")):
+        loss, logit = tr.forward_backward({k: v.to(dv) for k, v in batch.items()}, 1, keep=keep.to(dv))
+        stats = {k: b.detach().cpu().clone() for k, b in tr.model.named_buffers() if k.endswith(("_mean", "_var"))}
+        runs[name] = {"loss": {"loss": loss.cpu().reshape(1)}, "logit": {"logit": logit.cpu()}, "stats": stats,
+                      "grads": {k: g.cpu() for k, g in grads_dict(tr.model).items()}}
+    errs = {k: rel_max_err(runs["card"][k], runs["cpu"][k]) for k in runs["card"]}
+    one_ulp = {k: rel_max_err(runs["ulp"][k], runs["cpu"][k]) for k in runs["card"]}
+    bars = {k: max(1e-2 if k == "grads" else 1e-4, 2 * one_ulp[k]) for k in errs}
+    log("semseg", f"card vs CPU, fp32 B=4 64x512 step 1 (relative to the largest magnitude): {errs}; one ulp in "
+        f"the weights on the CPU: {one_ulp}; bars {bars}")
+    assert all(errs[k] <= bars[k] for k in errs), (errs, bars)
+
+    # the card's update is the chain's formula on its own gradients: clip to the global
+    # norm (optax's g / |g| * max), weight decay, momentum (the first step's buffer is d)
+    t, model = cfg.training, tr_dev.model
+    update_err, buf = [], None
+    for step in (1, 2):
+        if step == 2:
+            tr_dev.forward_backward(semseg_batch(root, 4, dev, offset=11), 2, keep=keep.to(dev))
+        g = {k: v.double() for k, v in grads_dict(model).items()}
+        p_old = {k: p.detach().double() for k, p in model.named_parameters()}
+        norm = math.sqrt(sum(float((v * v).sum()) for v in g.values()))
+        scale = 1.0 if norm < t.max_grad_norm else t.max_grad_norm / norm
+        d = {k: g[k] * scale + t.weight_decay * p_old[k] for k in g}
+        buf = d if buf is None else {k: t.lr_momentum * buf[k] + d[k] for k in d}
+        tr_dev.update(step)
+        ref = {k: p_old[k] - tr_dev.lr(step) * buf[k] for k in d}
+        update_err.append(rel_max_err({k: p.detach().double() for k, p in model.named_parameters()}, ref))
+    log("semseg", f"card's SGD updates against the chain's formula on its gradients: {update_err} (bar 1e-6; "
+        f"global norms clipped to {t.max_grad_norm})")
+    assert all(e <= 1e-6 for e in update_err), update_err
+    return {"errors": errs, "one_ulp": one_ulp, "bars": bars, "update_err": update_err}
+
+
+def semseg_knn_equal(dev, root):
+    """knn2d labels on 8 val frames' normalized depth (masked pixels < 0, whole windows tied
+    at +inf) with random labels: the card's equal the CPU's, at k 3 / kernel 3 and k 5 /
+    kernel 5; and the card's ms at B=32 (test_semseg's batch)."""
+    from dusty_gan_v2_tpu_torch.semseg import KITTIRawFrontal, knn2d
+
+    ds = KITTIRawFrontal(root=str(root), split="val", shape=(64, 512), omit_cyclist=True)
+    depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(32)]))
+    label = torch.randint(0, 3, (32, 64, 512), generator=torch.Generator().manual_seed(4))
+    rec = {}
+    for k, ks in ((3, 3), (5, 5)):
+        ref = knn2d(depth[:8], label[:8], 3, k=k, kernel_size=(ks, ks))
+        got = knn2d(depth[:8].to(dev), label[:8].to(dev), 3, k=k, kernel_size=(ks, ks)).cpu()
+        assert torch.equal(got, ref), f"knn2d k={k} kernel {ks}: card and CPU labels differ"
+        d32, l32 = depth.to(dev), label.to(dev)
+        rec[f"k{k}_kernel{ks}_B32_ms"] = cuda_ms(lambda: knn2d(d32, l32, 3, k=k, kernel_size=(ks, ks)), reps=5,
+                                                 repeats=3)
+    rec["changed_share"] = float((ref != label[:8]).float().mean())
+    log("semseg", f"knn2d labels equal on the card and the CPU (8 frames, 64x512); {rec}")
+    return rec
+
+
+def semseg_bf16_vs_fp32(dev, root):
+    """Eval-mode logits (CRF on) of the bf16 policy against fp32 on the same weights at B=40,
+    in two states of the BN statistics. At their init: max |difference| <= 0.02 of the
+    largest |logit| (the JAX package's own bar) and relative L2 <= 5e-2. Set to a
+    calibration batch's (one fp32 train-mode pass with momentum 1): relative L2 <=
+    SEMSEG_BF16_CAL_BAR (the JAX package's bf16 policy reads 0.448 in that state on the CPU,
+    tests/test_torch_semseg.py::test_bf16_policy_against_fp32)."""
+    from dusty_gan_v2_tpu_torch.cli.train_semseg import build_model
+    from dusty_gan_v2_tpu_torch.semseg.common import BatchNorm2d
+
+    m32 = build_model(semseg_cfg(root, "float32")).to(dev)
+    m16 = build_model(semseg_cfg(root, "bfloat16")).to(dev)
+    calib, batch = semseg_batch(root, SEMSEG_BENCH_B, dev, offset=SEMSEG_BENCH_B), semseg_batch(root, SEMSEG_BENCH_B, dev)
+    rec = {}
+    with torch.no_grad():
+        for state in ("init", "calibrated"):
+            if state == "calibrated":
+                bns = [m for m in m32.modules() if isinstance(m, BatchNorm2d)]
+                for bn in bns:
+                    bn.momentum = 1.0
+                xyz = calib["xyz"]
+                m32(torch.cat([xyz, calib["depth"]], 1), xyz, calib["mask"].float(), train=True,
+                    keep=torch.ones((len(xyz), 64, 1, 1), dtype=torch.bool, device=dev))
+                for bn in bns:
+                    bn.momentum = 0.001
+            m16.load_state_dict(m32.state_dict())
+            xyz, mask = batch["xyz"], batch["mask"].float()
+            x = torch.cat([xyz, batch["depth"]], 1)
+            y32, y16 = m32(x, xyz, mask), m16(x, xyz, mask)
+            assert y16.dtype == torch.float32 and bool(torch.isfinite(y16).all())
+            rec[state] = {"rel_l2": float(torch.linalg.vector_norm(y16 - y32) / torch.linalg.vector_norm(y32)),
+                          "max_abs_over_scale": float((y16 - y32).abs().max() / y32.abs().max())}
+    log("semseg", f"bf16 vs fp32 eval-mode logits at B={SEMSEG_BENCH_B}: {rec} (bars: init 0.02 max abs over scale "
+        f"and 5e-2 relative L2; calibrated {SEMSEG_BF16_CAL_BAR} relative L2)")
+    assert rec["init"]["max_abs_over_scale"] <= 0.02 and rec["init"]["rel_l2"] <= 5e-2, rec
+    assert rec["calibrated"]["rel_l2"] <= SEMSEG_BF16_CAL_BAR, rec
+    del m32, m16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def semseg_rates(dev, root):
+    """ms per bare step and imgs/s (CUDA events), peak GiB; for the bf16 rows the device ms
+    from the profiler, its top 8 and the idle share over the unprofiled step."""
+    rows = []
+    for label, dtype, B, use_crf, tf32, prof in (
+        ("fp32 B=40, TF32 off", "float32", 40, True, False, False),
+        ("fp32 B=40, TF32 allowed", "float32", 40, True, True, False),
+        ("bf16 B=40", "bfloat16", 40, True, False, True),
+        ("bf16 B=120", "bfloat16", 120, True, False, True),
+        ("bf16 B=120, no CRF", "bfloat16", 120, False, False, True),
+    ):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            tr = semseg_trainer(semseg_cfg(root, dtype, use_crf), dev)
+            batch = semseg_batch(root, B, dev)
+            counter = iter(range(1, 10**6))
+            step = lambda: tr.step(batch, next(counter))  # noqa: E731
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, reps=3, repeats=3)
+            rec = {"label": label, "batch": B, "step_ms": ms, "imgs_per_s": 1e3 * B / ms,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if prof:
+                dev_ms, wall_ms, by_name = profile_ms(step, reps=3)
+                rec.update(device_ms=dev_ms, profiled_wall_ms=wall_ms,
+                           device_idle_share=None if dev_ms is None else max(0.0, 1.0 - dev_ms / ms),
+                           top_device_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        del tr, batch
+        torch.cuda.empty_cache()
+        log("semseg-rates", f"{label}: {ms:.3f} ms a step = {rec['imgs_per_s']:.1f} imgs/s, peak {rec['peak_gib']:.2f} "
+            f"GiB; device {rec.get('device_ms')} ms, idle share {rec.get('device_idle_share')}")
+        if prof:
+            log("semseg-rates", "  top device ms per step: " + "; ".join(f"{n[:60]} {t:.3f}" for n, t in rec["top_device_ms"]))
+        rows.append(rec)
+    crf, no_crf = rows[3]["step_ms"], rows[4]["step_ms"]
+    log("semseg-rates", f"the CRF's share of the bf16 B=120 step: {(crf - no_crf) / crf:.3f} ({crf - no_crf:.3f} ms)")
+    return {"rows": rows, "crf_share_b120": (crf - no_crf) / crf}
+
+
+def phase_semseg(dev, smi):
+    """The semseg command lines in process, through main(argv), on the bf16 CRF config at
+    B=120, then the checks and rates. The path launches none of K1-K5."""
+    import tempfile
+
+    from dusty_gan_v2_tpu_torch.cli import test_semseg, train_semseg
+    from dusty_gan_v2_tpu_torch.semseg.train_step import SemsegTrainer, load_checkpoint
+    from dusty_gan_v2_tpu_torch.utils.config import save_config
+
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_semseg_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti_raw_frontal"
+        t0 = time.perf_counter()
+        fabricate_semseg(root)
+        rec["fabricate_s"] = time.perf_counter() - t0
+        cfg = semseg_cfg(root)
+        cfg.training.max_steps = SEMSEG_STEPS
+        ck = cfg.training.checkpoint
+        ck.stats, ck.test = 4, SEMSEG_STEPS
+        B = int(cfg.training.batch_size)
+        assert (B, cfg.arch.compute_dtype, cfg.arch.use_crf, cfg.loss.name) == SEMSEG_CONFIG
+        save_config(cfg, str(tmp / "semseg.yaml"))
+        args = ["--config", str(tmp / "semseg.yaml"), "--num_workers", "4", "--device", str(dev)]
+
+        read_and_reset(CHAIN_COUNTERS)
+        fps_cuda.launches = emd_cuda.launches = 0
+        with StepWindow(*SEMSEG_WINDOW, cls=SemsegTrainer) as window:
+            t0 = time.perf_counter()
+            trainer = train_semseg.main(args + ["--log_dir", str(tmp / "logs_a")])
+            torch.cuda.synchronize()
+            rec["train_s"] = time.perf_counter() - t0
+        n_win = SEMSEG_WINDOW[1] - SEMSEG_WINDOW[0] + 1
+        rec["cli_window_ms_per_step"] = window.ms / n_win
+        rec["cli_imgs_per_s"] = 1e3 * B * n_win / window.ms
+        rows = [json.loads(line) for line in (tmp / "logs_a" / "stats.jsonl").read_text().splitlines()]
+        log("semseg", f"train_semseg, bf16 B={B} + CRF, steps 1-{SEMSEG_STEPS}: {rec['train_s']:.2f} s (process start "
+            f"to checkpoint); steps {SEMSEG_WINDOW[0]}-{SEMSEG_WINDOW[1]} {window.ms:.1f} ms = "
+            f"{rec['cli_window_ms_per_step']:.3f} ms a step, {rec['cli_imgs_per_s']:.1f} imgs/s; stats rows {rows}")
+        assert [r["step"] for r in rows] == [4, 8, 12, 16, 16], rows
+        assert all(math.isfinite(v) for r in rows for v in r.values() if not isinstance(v, list)), rows
+        ckpt = tmp / "logs_a" / "models" / f"checkpoint_step-{SEMSEG_STEPS:010d}.ckpt"
+        _, payload = load_checkpoint(str(ckpt))
+        saved = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        differ = payload_equal({**payload["params"], **payload["batch_stats"]}, saved)
+        log("semseg", f"checkpoint {ckpt.stat().st_size / 2**20:.1f} MiB at step {payload['step']}; loaded equals the "
+            f"trained state bit for bit: {not differ} {differ[:5]}")
+        assert payload["step"] == SEMSEG_STEPS and not differ, differ
+        del trainer, payload, saved
+        torch.cuda.empty_cache()
+
+        # the idle share: the device's busy time in the same window of a second run, under the
+        # profiler, over the unprofiled window
+        with StepWindow(*SEMSEG_WINDOW, profile=True, cls=SemsegTrainer) as pwin:
+            train_semseg.main(args + ["--log_dir", str(tmp / "logs_b")])
+        rec["profiled_window_ms"], rec["device_busy_ms"] = pwin.ms, pwin.busy_ms
+        rec["device_idle_share"] = max(0.0, 1.0 - pwin.busy_ms / window.ms)
+        log("semseg", f"profiled second run, steps {SEMSEG_WINDOW[0]}-{SEMSEG_WINDOW[1]}: {pwin.ms:.1f} ms, device busy "
+            f"{pwin.busy_ms:.1f} ms: idle share {rec['device_idle_share']:.3f} of the unprofiled window")
+        torch.cuda.empty_cache()
+
+        # each evaluation twice, in turns: the first call of the first one sets up cuDNN
+        rec["test_semseg"] = {}
+        for knn in (False, True, False, True):
+            out = tmp / f"scores_{knn}.json"
+            scores, info = test_semseg.main(["--ckpt_path", str(ckpt), "--dataset_root", str(root), "--out", str(out),
+                                             "--device", str(dev)] + (["--knn"] if knn else []))
+            assert json.loads(out.read_text()) == scores and info["frames"] == SEMSEG_VAL
+            assert all(math.isfinite(v) and 0 <= v <= 1 for k in scores for v in scores[k]), scores
+            rec["test_semseg"].setdefault("knn" if knn else "plain", []).append(
+                {"scores": scores, "seconds": info["seconds"], "frames_per_s": info["frames"] / info["seconds"]})
+            log("semseg", f"test_semseg{' --knn' if knn else ''}: {info['frames']} frames in {info['seconds']:.3f} s = "
+                f"{info['frames'] / info['seconds']:.1f} frames/s; {scores}")
+        launches = {**read_and_reset(CHAIN_COUNTERS), "fps": fps_cuda.launches, "emd": emd_cuda.launches}
+        log("semseg", f"K1-K5 launches over train_semseg (two runs) and test_semseg (four): {launches}")
+        assert not any(launches.values()), launches
+        rec["k1_k5_launches"] = launches
+
+        rec["card_vs_cpu"] = semseg_card_vs_cpu(dev, root)
+        rec["knn"] = semseg_knn_equal(dev, root)
+        rec["bf16_vs_fp32"] = semseg_bf16_vs_fp32(dev, root)
+        rec["rates"] = semseg_rates(dev, root)
+    return rec
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -1882,6 +2213,7 @@ def main():
     critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
     train_launches, train_rec = phase_train(dev, smi)
     cli_rec = phase_cli(dev, smi, train_rec["rates"][0]["imgs_per_s"])
+    semseg_rec = phase_semseg(dev, smi)
     # this slice's main path is the command lines: K1, K4 and K5 over train_gan's 16 iterations
     # (8, a checkpoint, 8 resumed), K2 and K3 in test_gan
     k1["launches"] = cli_rec["launches"]["fused_bias_act"]
@@ -1894,7 +2226,7 @@ def main():
         "cuda": torch.version.cuda, "build_s": build_s, "ptxas": reports,
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
-        "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec,
+        "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

@@ -3,6 +3,7 @@
 from .jax_variables import (
     flatten_variables,
     jax_variables_to_state_dict,
+    load_jax_squeezeseg,
     load_jax_train_state,
     load_jax_variables,
     load_pointnet_params,
@@ -10,6 +11,6 @@ from .jax_variables import (
 )
 
 __all__ = [
-    "flatten_variables", "jax_variables_to_state_dict", "load_jax_train_state", "load_jax_variables",
+    "flatten_variables", "jax_variables_to_state_dict", "load_jax_squeezeseg", "load_jax_train_state", "load_jax_variables",
     "load_pointnet_params", "pointnet_params_to_state_dict",
 ]

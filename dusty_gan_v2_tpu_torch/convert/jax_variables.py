@@ -14,6 +14,10 @@ the port's TrainState: the three variable trees, optax's Adam moments (its
 each optimizer's `step`, `exp_avg` and `exp_avg_sq`, the ADA controller and the PL
 baseline.
 
+`load_jax_squeezeseg` carries a flax SqueezeSeg's {"params", "batch_stats"} tree into the
+port's SqueezeSegV1 / V2: BatchNorm's running statistics become the buffers under the
+same paths (conv1b.bn.running_mean).
+
 The JAX PointNet keeps its parameters in a nested dict shaped like the torch state dict
 (pointnet.py::init_pointnet_params), so it flattens the same way; a pointwise-conv
 weight may come as (O, I) or (O, I, 1).
@@ -29,7 +33,7 @@ import torch
 
 __all__ = [
     "COLLECTIONS", "flatten_variables", "jax_variables_to_state_dict", "load_jax_variables",
-    "pointnet_params_to_state_dict", "load_pointnet_params", "load_jax_train_state",
+    "pointnet_params_to_state_dict", "load_pointnet_params", "load_jax_train_state", "load_jax_squeezeseg",
 ]
 
 COLLECTIONS = ("params", "stats", "consts")
@@ -66,6 +70,15 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.M
     missing or extra key fails (strict=True)."""
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
     return model
+
+
+def load_jax_squeezeseg(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load a flax SqueezeSeg's {"params", "batch_stats"} into the port model
+    (strict=True); the running statistics go into the BN buffers."""
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise ValueError(f"unexpected variable collections: {sorted(extra)}")
+    return load_jax_variables(model, {"params": variables["params"], "stats": variables.get("batch_stats", {})})
 
 
 def pointnet_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
