@@ -102,6 +102,21 @@
    CPU, bf16 against fp32 logits at B=40, and the bare step's rates (fp32 B=40 with TF32
    off and allowed, bf16 B=40, bf16 B=120 with and without the CRF; device ms, idle share,
    peak GiB).
+12. other archs: configs/gans/dusty_v1.yaml (DUSty v1 G + vanilla D) and vanilla.yaml
+   (vanilla G + vanilla D) at full width (ch_base 64, ch_max 512, 64 x 512, z 512, f32,
+   TF32 off), read with sampling.train_cfg. For each: the G (seeded, non-zero biases and
+   w_avg) samples B=8 at psi 0.7 on the card and on the CPU on the same z and logistic
+   noise (image_orig / image and raydrop_logit within 1e-4; DUSty v1's drop-mask flips at
+   most 4, or twice the one-ulp run's), the D scores the CPU's images on both (logits
+   1e-4); K1 launches 4 per G forward and 4 per D forward; samples/s at B=32 and 128; one
+   fp32 B=4 step card against CPU on replayed draws with phase 9's bars; bare Trainer
+   steps at the config's B=32 (iteration 0 with R1: K1 24, then 20 a step) and their rates.
+   train_gan runs dusty_v1.yaml on a fabricated KITTI tree over 16 iterations (ADA every
+   4, R1 at 16: K1 324), then test_gan evaluates its checkpoint over swd, jsd, 1nna-cd,
+   1nna-emd, fpd and kpd at 64 + 64 clouds (K1 4, K2 3, K3 48, every score finite);
+   test_gan evaluates a checkpoint of the vanilla bare steps over swd, jsd and 1nna-cd
+   through the real sets (its config sets no measurement_kwargs.raydrop_const: the reals
+   take the dataset's).
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
@@ -140,6 +155,7 @@ from dusty_gan_v2_tpu_torch.ops import (
 from dusty_gan_v2_tpu_torch.ops.fused_chain import chain_operators, operators_from_dense
 from dusty_gan_v2_tpu_torch.sampling import (
     full_disc_cfg, full_gen_cfg, full_train_cfg, load_angle, make_coord_bridge, sample, sample_and_downsample,
+    train_cfg,
 )
 from dusty_gan_v2_tpu_torch.parallel import PerSampleStream, ReplayStream
 from dusty_gan_v2_tpu_torch.training import Trainer, d_phase_loss, g_phase_loss, r1_penalty
@@ -1349,7 +1365,7 @@ MAX_FLIPS = 4  # such pixels allowed in a B=4 step's fakes (131,072 pixels), or 
 PL_VALUES, PL_BAR = ("loss/G/path_length", "loss/G/path_length/baseline"), 1e-3
 
 
-def train_card_vs_cpu(dev, it=32, pl=0, label="train"):
+def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
     """One fp32 B=4 step on the card and on the CPU from the same state (two steps old, so
     Adam's moments are populated) on the same draws: at iteration 32 R1 + ADA + warmup;
     with `pl` > 0 (lazy pl 4) iteration 36 takes PL + ADA + warmup.
@@ -1363,8 +1379,9 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train"):
     ulp in the weights flips on the CPU). Values are held at 1e-4 (PL's at PL_BAR), or
     twice the shift one ulp in the weights makes on the CPU where that is larger. A CPU
     run that takes the card's gradients into its optimizer steps holds each phase on the
-    state the card's earlier phases made, every value at 1e-4."""
-    cfg = full_train_cfg(False)
+    state the card's earlier phases made, every value at 1e-4. `config` names the float32
+    configs/gans/*.yaml (B=32, lazy gp 16, ada 4 in each)."""
+    cfg = train_cfg(config)
     cfg["training"]["batch_size"] = 4
     cfg["training"]["loss"]["pl"] = pl
     # it 32: R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations); 36: PL (every 4), no R1
@@ -2194,6 +2211,232 @@ def phase_semseg(dev, smi):
     return rec
 
 
+# phase 12: the DUSty v1 and vanilla families at full width (configs/gans/dusty_v1.yaml: DUSty v1 G
+# + vanilla D; vanilla.yaml: vanilla G + vanilla D; ch_base 64, ch_max 512, 64 x 512, z 512, float32)
+OTHER_CONFIGS = ("dusty_v1", "vanilla")
+# bias-act sites: the projection and up1-3 in either G (the head has none), down1-4 in the D
+OTHER_K1_G = OTHER_K1_D = 4
+# K1 a step: G phase G + D forward, D phase G + two D forwards; R1 one D forward more (the
+# double backward runs the bias-act's plain backward): {R1: launches}
+OTHER_STEP_K1 = {False: 20, True: 24}
+OTHER_ITERS, OTHER_WINDOW = 16, (9, 15)  # train_gan on dusty_v1.yaml: ADA at 4, 8, 12, 16, R1 at 16
+OTHER_BARE_ITS = (0, 1, 2)  # bare steps: 0 takes R1 + ADA + warmup, 1 and 2 warmup only
+OTHER_VANILLA_METRICS = "swd,jsd,1nna-cd"
+
+
+def other_forward_gates(name, dev):
+    """The config's G (seed 0) and D (seed 1), with non-zero biases and w_avg, on the card
+    against the same modules on the CPU, B=8 at psi 0.7 on the same z and logistic noise;
+    the K1 launches of one forward of each. Returns the card's G and the record."""
+    m = train_cfg(name)["model"]
+    cpu_gen = torch.Generator().manual_seed(12)
+    G_cpu = build_generator(m["generator"], device="cpu", seed=0)
+    D_cpu = build_discriminator(m["discriminator"], device="cpu", seed=1)
+    with torch.no_grad():  # as after training: biases and w_avg away from zero
+        for mod in (G_cpu, D_cpu):
+            for k, prm in mod.named_parameters():
+                if k.endswith("bias"):
+                    prm.normal_(0.0, 0.1, generator=cpu_gen)
+        G_cpu.w_avg.normal_(0.0, 0.3, generator=cpu_gen)
+    G, D = copy.deepcopy(G_cpu).to(dev), copy.deepcopy(D_cpu).to(dev)
+    z = torch.randn(B_SLICE, 512, generator=cpu_gen)
+    noise = sample_logistic(cpu_gen, (B_SLICE, 1, 64, 512))
+    read_and_reset(CHAIN_COUNTERS)
+    o = sample(G, z.to(dev), None, 0.7, noise.to(dev))
+    torch.cuda.synchronize()
+    g_k1 = read_and_reset(CHAIN_COUNTERS)
+    o_cpu = sample(G_cpu, z, None, 0.7, noise)
+    with torch.no_grad():
+        read_and_reset(CHAIN_COUNTERS)
+        y = D(o_cpu["image"].to(dev), blur_fuse=False)
+        torch.cuda.synchronize()
+        d_k1 = read_and_reset(CHAIN_COUNTERS)
+        y_cpu = D_cpu(o_cpu["image"], blur_fuse=False)
+    G_ulp = copy.deepcopy(G_cpu)
+    with torch.no_grad():
+        for prm in G_ulp.parameters():
+            prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    o_ulp = sample(G_ulp, z, None, 0.7, noise)
+    raydrop = "raydrop_mask" in o_cpu
+    keys = ("image_orig", "raydrop_logit") if raydrop else ("image",)
+    errs = {k: float((o[k].cpu() - o_cpu[k]).abs().max()) for k in keys}
+    errs["D_logits"] = float((y.cpu() - y_cpu).abs().max())
+    flips = {"card": int((o["raydrop_mask"].cpu() != o_cpu["raydrop_mask"]).sum()),
+             "one_ulp": int((o_ulp["raydrop_mask"] != o_cpu["raydrop_mask"]).sum())} if raydrop else {}
+    flip_bar = max(MAX_FLIPS, 2 * flips.get("one_ulp", 0))
+    rec = {"max_abs_err": errs, "raydrop_flips": flips, "flip_bar": flip_bar, "k1_G_forward": g_k1["fused_bias_act"],
+           "k1_D_forward": d_k1["fused_bias_act"], "outputs": sorted(o), "logit_scale": float(y_cpu.abs().max())}
+    log("other", f"{name}: card vs CPU fp32, B={B_SLICE} psi 0.7, max abs err {errs} (bar 1e-4; logits up to "
+        f"{rec['logit_scale']:.3f}); drop-mask flips {flips} (bar {flip_bar}); K1 per forward G {g_k1}, D {d_k1}")
+    assert all(e <= 1e-4 for e in errs.values()), errs
+    assert not raydrop or flips["card"] <= flip_bar, (flips, flip_bar)
+    assert g_k1 == {"fused_bias_act": OTHER_K1_G, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, g_k1
+    assert d_k1 == {"fused_bias_act": OTHER_K1_D, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, d_k1
+    assert tuple(o["image"].shape) == (B_SLICE, 1, 64, 512) and tuple(y.shape) == (B_SLICE, 1, 1, 1)
+    return G, rec
+
+
+def other_sample_rates(name, G, dev):
+    """samples/s of the G at B=32 and B=128 (CUDA events), device ms and idle share."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = []
+    for B in (32, B_WIDE):
+        z = torch.randn(B, 512, device=dev, generator=gen)
+        noise = sample_logistic(gen, (B, 1, 64, 512), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: sample(G, z, None, 1.0, noise), reps=10, repeats=3)
+        dev_ms, _, by_name = profile_ms(lambda: sample(G, z, None, 1.0, noise), reps=5)
+        rec = {"batch": B, "sample_ms": ms, "samples_per_s": 1e3 * B / ms, "device_ms": dev_ms,
+               "device_idle_share": None if dev_ms is None else max(0.0, 1.0 - dev_ms / ms),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+        out.append(rec)
+        log("other", f"{name} G fp32 B={B}: {ms:.3f} ms = {rec['samples_per_s']:.1f} samples/s; device {dev_ms} ms, "
+            f"idle share {rec['device_idle_share']}; peak {rec['peak_gib']:.2f} GiB; top "
+            + "; ".join(f"{n[:50]} {t:.3f}" for n, t in rec["top_device_ms"]))
+    return out
+
+
+def other_bare_steps(name, dev):
+    """The config's own Trainer (B=32): OTHER_BARE_ITS with the K1 counters read around each
+    step, then train_rates. Returns (trainer, state, record)."""
+    tr = Trainer(train_cfg(name), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    batch = train_batch(tr, 0)
+    steps = {}
+    for it in OTHER_BARE_ITS:
+        sched = tr.schedule(it)
+        read_and_reset(CHAIN_COUNTERS)
+        metrics = {k: float(v) for k, v in tr.step(st, batch, it).items()}
+        launches = read_and_reset(CHAIN_COUNTERS)
+        steps[it] = {"r1": sched.do_r1, "launches": launches, "metrics": metrics}
+        assert launches == {"fused_bias_act": OTHER_STEP_K1[sched.do_r1], "fused_chain_fwd": 0, "fused_chain_bwd": 0}, \
+            (name, it, launches)
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+    assert steps[0]["r1"] and "loss/D/gradient_penalty" in steps[0]["metrics"]
+    log("other", f"{name} bare Trainer steps, fp32 B={tr.batch_size}: " + "; ".join(
+        f"iteration {it} (R1 {v['r1']}) K1 {v['launches']['fused_bias_act']}, {v['metrics']}" for it, v in steps.items()))
+    rates = train_rates(tr, st, batch, f"{name} fp32 B={tr.batch_size}, TF32 off")
+    return tr, st, {"steps": steps, "rates": rates}
+
+
+def other_train_gan(dev, tmp):
+    """train_gan on dusty_v1.yaml (B=32) over OTHER_ITERS iterations on the fabricated tree,
+    then test_gan on its checkpoint over CLI_METRICS at 64 + 64 clouds."""
+    from dusty_gan_v2_tpu_torch.cli import test_gan, train_gan
+    from dusty_gan_v2_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v1.yaml"))
+    cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+    ck = cfg.training.checkpoint
+    ck.save_stats, ck.save_model, ck.validation = 4, OTHER_ITERS, 10**9
+    B = int(cfg.training.batch_size)
+    cfg.training.total_kimg = OTHER_ITERS * B / 1e3
+    save_config(cfg, str(tmp / "dusty_v1.yaml"))
+    rec = {}
+    read_and_reset(CHAIN_COUNTERS)
+    fps_cuda.launches = emd_cuda.launches = 0
+    with StepWindow(*OTHER_WINDOW) as window:
+        t0 = time.perf_counter()
+        _, state = train_gan.main(["--config", str(tmp / "dusty_v1.yaml"), "--log_dir", str(tmp / "logs_v1"),
+                                   "--num_workers", "4", "--device", str(dev)])
+        torch.cuda.synchronize()
+        rec["train_gan_s"] = time.perf_counter() - t0
+    launches = {**read_and_reset(CHAIN_COUNTERS), "fps": fps_cuda.launches, "emd": emd_cuda.launches}
+    want = {"fused_bias_act": (OTHER_ITERS - 1) * OTHER_STEP_K1[False] + OTHER_STEP_K1[True], "fused_chain_fwd": 0,
+            "fused_chain_bwd": 0, "fps": 0, "emd": 0}
+    n_win = OTHER_WINDOW[1] - OTHER_WINDOW[0] + 1
+    rec["cli_imgs_per_s"] = 1e3 * B * n_win / window.ms
+    rows = [json.loads(line) for line in (tmp / "logs_v1" / "stats.jsonl").read_text().splitlines()]
+    log("other", f"train_gan dusty_v1.yaml, fp32 B={B}, iterations 1-{OTHER_ITERS}: {rec['train_gan_s']:.2f} s; "
+        f"iterations {OTHER_WINDOW[0]}-{OTHER_WINDOW[1]} {window.ms / n_win:.3f} ms an iteration = "
+        f"{rec['cli_imgs_per_s']:.1f} imgs/s (loader uncached, as the config sets); launches {launches} (want "
+        f"{want}); stats rows {rows}")
+    assert launches == want, (launches, want)
+    assert state.step == OTHER_ITERS and [r["iteration"] for r in rows] == [4, 8, 12, 16], rows
+    assert all(math.isfinite(v) for r in rows for v in r.values()), rows
+    assert "loss/D/gradient_penalty" in rows[-1] and "stats/ada_rt" in rows[-1], rows
+    rec["launches"], rec["stats"] = launches, rows
+    del state
+    torch.cuda.empty_cache()
+
+    ckpt = tmp / "logs_v1" / "models" / f"checkpoint_{OTHER_ITERS * B:010d}.ckpt"
+    out = tmp / "scores_v1.json"
+    fps_cuda.launches = emd_cuda.launches = 0
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    scores, stages = test_gan.main([
+        "--ckpt_path", str(ckpt), "--metrics", CLI_METRICS, "--num_samples", str(N_CLOUDS), "--num_subsample",
+        str(N_CLOUDS), "--pointnet_ckpt", "random", "--out", str(out), "--device", str(dev),
+    ])
+    rec["test_gan_s"] = time.perf_counter() - t0
+    ev = {"fused_bias_act": read_and_reset(CHAIN_COUNTERS)["fused_bias_act"], "fps": fps_cuda.launches,
+          "emd": emd_cuda.launches}
+    log("other", f"test_gan on the dusty_v1 checkpoint, --metrics {CLI_METRICS}, {N_CLOUDS} + {N_CLOUDS} clouds: "
+        f"{rec['test_gan_s']:.2f} s; seconds per stage {stages}; launches {ev}; scores {scores}")
+    assert json.loads(out.read_text()) == scores and all(math.isfinite(v) for v in scores.values()), scores
+    assert {"jsd", "fpd", "kpd"} <= set(scores) and any(k.endswith("-emd") for k in scores), scores
+    assert ev == {"fused_bias_act": OTHER_K1_G, "fps": 3, "emd": 48}, ev
+    rec.update(test_gan_stage_s=stages, test_gan_scores=scores, test_gan_launches=ev)
+    return rec
+
+
+def other_vanilla_test_gan(dev, tmp, tr, st):
+    """test_gan on a checkpoint of the vanilla bare steps' state, through the real sets:
+    its config sets no measurement_kwargs.raydrop_const, so the reals take the dataset's."""
+    from dusty_gan_v2_tpu_torch.cli import test_gan
+    from dusty_gan_v2_tpu_torch.training.checkpoint import save_checkpoint
+    from dusty_gan_v2_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "vanilla.yaml"))
+    cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+    assert cfg.to_dict()["model"] == tr.cfg["model"]
+    assert "raydrop_const" not in cfg.model.generator.measurement_kwargs
+    path = tmp / "vanilla.ckpt"
+    save_checkpoint(str(path), cfg, st, tr.angle, st.step * tr.batch_size)
+    out = tmp / "scores_vanilla.json"
+    fps_cuda.launches = emd_cuda.launches = 0
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    scores, stages = test_gan.main([
+        "--ckpt_path", str(path), "--metrics", OTHER_VANILLA_METRICS, "--num_samples", str(N_CLOUDS),
+        "--num_subsample", str(N_CLOUDS), "--out", str(out), "--device", str(dev),
+    ])
+    seconds = time.perf_counter() - t0
+    ev = {"fused_bias_act": read_and_reset(CHAIN_COUNTERS)["fused_bias_act"], "fps": fps_cuda.launches,
+          "emd": emd_cuda.launches}
+    log("other", f"test_gan on a vanilla checkpoint, --metrics {OTHER_VANILLA_METRICS}, {N_CLOUDS} + {N_CLOUDS} "
+        f"clouds: {seconds:.2f} s; seconds per stage {stages}; launches {ev}; scores {scores}")
+    assert "real data collection" in stages and json.loads(out.read_text()) == scores, stages
+    assert all(math.isfinite(v) for v in scores.values()) and "jsd" in scores, scores
+    assert ev == {"fused_bias_act": OTHER_K1_G, "fps": 2, "emd": 0}, ev
+    return {"test_gan_s": seconds, "test_gan_stage_s": stages, "test_gan_scores": scores, "test_gan_launches": ev}
+
+
+def phase_other_archs(dev, smi):
+    """DUSty v1 and vanilla: card-vs-CPU forwards and training steps, rates, the bare steps,
+    train_gan + test_gan on dusty_v1.yaml, test_gan on a vanilla checkpoint."""
+    import tempfile
+
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+        tmp = Path(tmp)
+        fabricate_kitti(tmp / "kitti_raw")
+        for name in OTHER_CONFIGS:
+            G, fwd = other_forward_gates(name, dev)
+            r = {"forward": fwd, "sample_rates": other_sample_rates(name, G, dev)}
+            del G
+            r["card_vs_cpu"] = train_card_vs_cpu(dev, label="other", config=name)
+            tr, st, r["bare"] = other_bare_steps(name, dev)
+            if name == "vanilla":
+                r.update(other_vanilla_test_gan(dev, tmp, tr, st))
+            del tr, st
+            torch.cuda.empty_cache()
+            rec[name] = r
+        rec["dusty_v1"]["cli"] = other_train_gan(dev, tmp)
+    return rec
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -2214,6 +2457,7 @@ def main():
     train_launches, train_rec = phase_train(dev, smi)
     cli_rec = phase_cli(dev, smi, train_rec["rates"][0]["imgs_per_s"])
     semseg_rec = phase_semseg(dev, smi)
+    other_rec = phase_other_archs(dev, smi)
     # this slice's main path is the command lines: K1, K4 and K5 over train_gan's 16 iterations
     # (8, a checkpoint, 8 resumed), K2 and K3 in test_gan
     k1["launches"] = cli_rec["launches"]["fused_bias_act"]
@@ -2227,6 +2471,7 @@ def main():
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
+        "other_archs": other_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

@@ -4,8 +4,9 @@
     python -m dusty_gan_v2_tpu_torch.cli.test_gan --ckpt_path <checkpoint> \
         [--metrics swd,jsd,1nna-cd,fpd,kpd] [--pointnet_ckpt cls_model_39.pth|random] [--device cuda|cpu]
 
-G_ema of the checkpoint generates `num_samples` images with one fixed logistic noise map
-(drawn with numpy from --seed, as the JAX CLI draws it), and evaluation.py's stages
+G_ema of the checkpoint (any generator arch: dusty_v2, dusty_v1, vanilla) generates
+`num_samples` images with one fixed logistic noise map (drawn with numpy from --seed, as
+the JAX CLI draws it; a vanilla generator does not read it), and evaluation.py's stages
 turn them into PointNet features and FPS-downsampled clouds. The real sets come from
 KITTI Raw: the test split for SWD, JSD and 1-NNA, the train split for FPD and KPD.
 A `[t] stage: seconds` line is printed per stage; --out receives the scores as JSON.
@@ -68,7 +69,10 @@ def main(argv: Optional[List[str]] = None):
     H, W = cfg.model.generator.synthesis_kwargs.resolution
     num_points = int(cfg.validation.num_points)
     coord = CoordBridge(H, W, cfg.dataset.min_depth, cfg.dataset.max_depth, angle=ckpt["angle"], device=device)
-    raydrop_const = float(cfg.model.generator.measurement_kwargs.raydrop_const)
+    # the reals' fill value: the measurement model's, else the dataset's (a vanilla
+    # generator has none; the JAX CLI reads measurement_kwargs.raydrop_const and fails there)
+    measurement = cfg.model.generator.get("measurement_kwargs", {})
+    raydrop_const = float(measurement.get("raydrop_const", cfg.dataset.raydrop_const))
 
     need_feats = any(m in metrics for m in ("fpd", "kpd"))
     need_test = any(m in metrics for m in ("swd", "jsd")) or any(m.startswith("1nna") for m in metrics)

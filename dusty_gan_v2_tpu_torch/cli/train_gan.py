@@ -1,7 +1,10 @@
-"""Train a DUSty v2 LiDAR range-image GAN on KITTI Raw (counterpart of train_gan.py).
+"""Train a LiDAR range-image GAN on KITTI Raw (counterpart of train_gan.py).
 
     python -m dusty_gan_v2_tpu_torch.cli.train_gan --config configs/gans/dusty_v2_bf16.yaml \
         [--resume <checkpoint>] [--log_dir DIR] [--dry_run] [--device cuda|cpu]
+
+Every shipped config trains: dusty_v2.yaml and dusty_v2_bf16.yaml (DUSty v2 G and D),
+dusty_v1.yaml (DUSty v1 G, vanilla D) and vanilla.yaml (vanilla G and D).
 
 The loop: KITTI Raw frames through the threaded loader and the device prefetcher (only
 the depth plane ships, in dataset.upload_dtype; the step rebuilds the mask as
@@ -196,8 +199,7 @@ def main(argv: Optional[List[str]] = None):
                     state, {"depth": batch["depth"][:8]}, i, stream=PerSampleStream(8, side(2 * i + 1), device)
                 )
                 fakes = trainer.sample(state, z_fixed, generator=side(2 * i))
-                out = {"real_aug": reals_aug, **{k: fakes[k] for k in ("image", "image_orig", "raydrop_logit",
-                                                                        "raydrop_mask")}}
+                out = {"real_aug": reals_aug, **{k: v for k, v in fakes.items() if k != "w"}}
                 (log_dir / "images").mkdir(exist_ok=True)
                 np.savez_compressed(log_dir / "images" / f"step_{num_imgs:010d}.npz",
                                     **{k: v.float().cpu().numpy() for k, v in out.items()})

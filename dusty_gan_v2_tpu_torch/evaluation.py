@@ -110,7 +110,7 @@ def collect_generated(
         fixed_logistic = sample_logistic(generator, (1, 1, *angle.shape[-2:]), device, eps=1e-6)
     fixed_logistic = fixed_logistic.to(device)
     z_dim = int(G.style_dim)
-    pe_cache = build_pe_cache(G, angle)  # constants of the fixed sensor grid
+    pe_cache = build_pe_cache(G, angle)  # constants of the fixed sensor grid (None without Fourier PE)
     imgs, pts, feats = [], [], []
     for done in range(0, n, batch_size):
         b = min(batch_size, n - done)

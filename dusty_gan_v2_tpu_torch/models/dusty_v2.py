@@ -44,7 +44,7 @@ from ..ops import (
     resample_sumsq,
     sample_logistic,
 )
-from .base import GeneratorMixin
+from .base import GeneratorMixin, reset_children
 from .dusty_v1 import apply_raydrop
 from .heads import resolve_act
 
@@ -54,12 +54,6 @@ __all__ = [
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _reset_children(module: nn.Module, generator: torch.Generator) -> None:
-    for m in module.modules():
-        if m is not module and hasattr(m, "reset_parameters"):
-            m.reset_parameters(generator)
 
 
 class MappingNetwork(nn.Module):
@@ -322,6 +316,8 @@ class SynthesisNetwork(nn.Module):
 class Generator(nn.Module, GeneratorMixin):
     """Mapping + synthesis + ray-drop measurement."""
 
+    has_raydrop = True  # draws logistic noise of raydrop_logit's shape
+
     def __init__(
         self,
         mapping_kwargs: dict,
@@ -340,7 +336,7 @@ class Generator(nn.Module, GeneratorMixin):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every weight and buffer anew from `generator` (module order)."""
-        _reset_children(self, generator)
+        reset_children(self, generator)
         with torch.no_grad():
             self.w_avg.zero_()
 
@@ -366,7 +362,7 @@ class Generator(nn.Module, GeneratorMixin):
             if generator is None:
                 raise ValueError("pass aug_shift or a torch.Generator to draw it")
             aug_shift = torch.rand(z.shape[0], generator=generator, device=z.device)
-        w = self._style(z, syn.num_styles, truncation_psi, train, input_w)
+        w = self._style(self.mapping_network, z, syn.num_styles, truncation_psi, train, input_w)
         o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift)
         o["w"] = w
         if gumbel_noise is None:
@@ -382,11 +378,15 @@ class Generator(nn.Module, GeneratorMixin):
         )
 
 
-def build_pe_cache(G: Generator, angle: torch.Tensor):
+def build_pe_cache(G: nn.Module, angle: torch.Tensor):
     """Per-block Fourier-PE volumes for a fixed sensor grid: G(z, None, pe_cache=...)
-    then skips the angle pyramid and the sin/cos volumes on every call."""
+    then skips the angle pyramid and the sin/cos volumes on every call. None for a
+    generator without Fourier PE (vanilla, dusty_v1)."""
+    build = getattr(G.synthesis_network, "pe_cache", None)
+    if build is None:
+        return None
     with torch.no_grad():
-        return G.synthesis_network.pe_cache(angle)
+        return build(angle)
 
 
 class ResidualBlock(nn.Module):
@@ -471,7 +471,7 @@ class Discriminator(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every weight anew from `generator` (module order); biases are zero."""
-        _reset_children(self, generator)
+        reset_children(self, generator)
 
     def layer_dtype(self, i: int) -> torch.dtype:
         low = self.compute_dtype == "bfloat16" and (self.num_fp16_layers == -1 or i < self.num_fp16_layers)

@@ -1,9 +1,10 @@
 """Equalized learning-rate layers (counterpart of dusty_gan_v2_tpu/ops/linear.py).
 
-Weights are stored in the torch layout ((out, in) dense, (O, I, kh, kw) conv), drawn
+Weights are stored in the torch layout ((out, in) dense, (O, I, kh, kw) conv, (I, O, kh,
+kw) transposed conv), drawn
 N(0, 1/lr_mul), and scaled at run time by 1/sqrt(fan_in); the output by gain * lr_mul.
-The convolutions themselves are F.conv2d (cuDNN on the card), as they are plain XLA
-convolutions in the JAX package.
+The convolutions themselves are F.conv2d and F.conv_transpose2d (cuDNN on the card), as
+they are plain XLA convolutions in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .blurconv import blur_conv1x1s2_ring, blur_conv3x3s2_ring, blur_conv_fusable
-from .pad import conv_ring_fast, pad2d
+from .pad import conv_ring_fast, convT4x4s2_ring_fast, pad2d
 
-__all__ = ["EqualLRDense", "EqualLRConv2d", "RingConv2d"]
+__all__ = ["EqualLRDense", "EqualLRConv2d", "EqualLRConvTranspose2d", "RingConv2d"]
 
 
 class EqualLRDense(nn.Module):
@@ -92,6 +93,46 @@ class EqualLRConv2d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
         return y * (self.gain * self.lr_mul)
+
+
+class EqualLRConvTranspose2d(nn.Module):
+    """Equal-LR ConvTranspose2d, NCHW, torch's stride and padding; the weight is
+    (in_ch, out_ch, kh, kw), torch's conv_transpose2d layout.
+
+    fan_in = out_ch * kh * kw: the reference takes weight[0].numel() of this layout, and
+    the JAX module keeps that. `ring_fast`: the 4x4 stride-2 padding-3 transposed
+    convolution of the input padded by 1 (circular W, reflect H;
+    ops/pad.py::convT4x4s2_ring_fast), the input coming unpadded."""
+
+    def __init__(
+        self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
+        padding: Tuple[int, int] = (0, 0), use_bias: bool = True, ring_fast: bool = False,
+    ):
+        super().__init__()
+        self.in_ch, self.out_ch = in_ch, out_ch
+        self.kernel_size, self.stride, self.padding = tuple(kernel_size), tuple(stride), tuple(padding)
+        if ring_fast and (self.kernel_size, self.stride, self.padding) != ((4, 4), (2, 2), (3, 3)):
+            raise ValueError("ring_fast is the 4x4 stride-2 padding-3 transposed convolution")
+        self.ring_fast = ring_fast
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel_size
+        w = (self.weight * (1.0 / math.sqrt(self.out_ch * kh * kw))).to(x.dtype)
+        if self.ring_fast:
+            y = convT4x4s2_ring_fast(x, w)
+        else:
+            y = F.conv_transpose2d(x, w, stride=self.stride, padding=self.padding)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
+        return y
 
 
 class RingConv2d(nn.Module):

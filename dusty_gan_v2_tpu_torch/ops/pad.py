@@ -1,6 +1,7 @@
 """Ring (circular-azimuth) padding, and the ring-padded 3x3 / 4x4 convolution.
 
-Counterpart of dusty_gan_v2_tpu/ops/pad.py (_pad_axis, pad2d, conv_ring_fast, filter2d):
+Counterpart of dusty_gan_v2_tpu/ops/pad.py (_pad_axis, pad2d, conv_ring_fast,
+convT4x4s2_ring_fast, filter2d):
 LiDAR range images are periodic along the azimuth (W), so W pads circularly and H by edge
 replication or reflection; the SWD metric's Gaussian pyramid pads both axes by
 reflection.
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["pad_axis", "pad2d", "conv_ring_fast", "conv3x3_ring_fast", "filter2d"]
+__all__ = ["pad_axis", "pad2d", "conv_ring_fast", "conv3x3_ring_fast", "convT4x4s2_ring_fast", "filter2d"]
 
 
 def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.Tensor:
@@ -73,6 +74,22 @@ def conv_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1), h_mode: str 
 def conv3x3_ring_fast(x: torch.Tensor, w: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
     """3x3 circular-W / replicate-H convolution (conv_ring_fast with its default mode)."""
     return conv_ring_fast(x, w, stride, h_mode="replicate")
+
+
+def convT4x4s2_ring_fast(x: torch.Tensor, w: torch.Tensor, h_mode: str = "reflect") -> torch.Tensor:
+    """4 x 4 stride-2 transposed convolution at padding 3 over circular-W / `h_mode`-H
+    padding 1: ConvT(pad2d(x, 1, ring=True, mode=h_mode), k=4, s=2, p=3), (H, W) -> (2H, 2W).
+
+    `w` (I, O, 4, 4) is the transposed-convolution weight, already scaled (the JAX
+    function takes its flipped transpose, the kernel of the equivalent dilated
+    convolution). The JAX function adds the wrap and edge contributions back as boundary
+    corrections to spare a TPU the padded copy; here the padded copy is made and cuDNN
+    runs one transposed convolution on it."""
+    if tuple(w.shape[-2:]) != (4, 4):
+        raise ValueError(f"convT4x4s2_ring_fast takes a 4x4 kernel, got {tuple(w.shape)}")
+    if h_mode not in ("replicate", "reflect"):
+        raise ValueError(f"convT4x4s2_ring_fast pads H by replicate or reflect, got {h_mode!r}")
+    return F.conv_transpose2d(pad2d(x, 1, ring=True, mode=h_mode), w, stride=2, padding=3)
 
 
 def filter2d(x: torch.Tensor, kernel, gain: float = 1.0) -> torch.Tensor:

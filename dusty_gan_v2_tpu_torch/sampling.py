@@ -6,6 +6,9 @@ generate -> FPS stage of test_gan.py).
     coord = make_coord_bridge(angle)
     o = sample(G, z, angle, truncation_psi=0.7, gumbel_noise=noise)
     o, inv, points = sample_and_downsample(G, z, angle, coord, k=2048, ...)
+
+Every generator arch samples through the same calls (build_generator(train_cfg("vanilla")
+["model"]["generator"])): a vanilla generator reads neither the angle nor the noise.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from .utils import resolve_device, tanh_to_sigmoid
 from .utils.config import load_config
 
 __all__ = [
-    "ANGLE_FILE", "full_gen_cfg", "full_disc_cfg", "full_train_cfg", "load_angle", "make_coord_bridge", "sample",
+    "ANGLE_FILE", "full_gen_cfg", "full_disc_cfg", "train_cfg", "full_train_cfg", "load_angle", "make_coord_bridge", "sample",
     "sample_and_downsample",
 ]
 
@@ -73,12 +76,18 @@ def full_disc_cfg(resolution=(64, 512)) -> dict:
     }
 
 
-def full_train_cfg(bf16: bool) -> dict:
-    """The "dataset", "training" and "model" sections of configs/gans/dusty_v2_bf16.yaml
-    (bf16=True: bfloat16 compute, B=128) or configs/gans/dusty_v2.yaml (float32, B=32),
-    read with utils/config.py::load_config."""
-    cfg = load_config(str(CONFIG_DIR / ("dusty_v2_bf16.yaml" if bf16 else "dusty_v2.yaml"))).to_dict()
+def train_cfg(name: str) -> dict:
+    """The "dataset", "training" and "model" sections of configs/gans/<name>.yaml, read
+    with utils/config.py::load_config: dusty_v1 (DUSty v1 G + vanilla D) and vanilla
+    (vanilla G + vanilla D), both float32 at B=32, or the dusty_v2 pair."""
+    cfg = load_config(str(CONFIG_DIR / f"{name}.yaml")).to_dict()
     return {k: cfg[k] for k in ("dataset", "training", "model")}
+
+
+def full_train_cfg(bf16: bool) -> dict:
+    """train_cfg of the flagship: configs/gans/dusty_v2_bf16.yaml (bf16=True: bfloat16
+    compute, B=128) or configs/gans/dusty_v2.yaml (float32, B=32)."""
+    return train_cfg("dusty_v2_bf16" if bf16 else "dusty_v2")
 
 
 def load_angle(resolution=(64, 512), device="cuda") -> torch.Tensor:

@@ -27,6 +27,11 @@ of a discriminator and image batches. Every D call takes the unfused route
 (blur_fuse=False), as every training call of the JAX step does: on the card that is the
 route of the fused chain kernels.
 
+Every arch pair of configs/gans/*.yaml trains: what a generator forward draws and caches
+follows its arch, as in the JAX step (dusty_v2: the azimuth shift with aug_coords, the
+logistic ray-drop noise and the Fourier-PE cache; dusty_v1: the noise; vanilla:
+nothing). A single-style generator's path lengths are (B, 1).
+
 Not ported: data parallelism (training/checkpoint.py and training/accumulation.py hold
 the checkpoint and gradient accumulation).
 """
@@ -166,7 +171,8 @@ class Trainer:
         tr, ds = cfg["training"], cfg["dataset"]
         g_cfg = cfg["model"]["generator"]
         self.resolution = tuple(g_cfg["synthesis_kwargs"]["resolution"])
-        self.z_dim = g_cfg["mapping_kwargs"]["in_ch"]
+        # the single-style archs map z by the identity: z is the synthesis input
+        self.z_dim = g_cfg["mapping_kwargs" if "mapping_kwargs" in g_cfg else "synthesis_kwargs"]["in_ch"]
         self.batch_size = int(tr["batch_size"])
 
         aug = tr["augment"]
@@ -255,7 +261,8 @@ class Trainer:
     def pe_cache_for(self, state: TrainState):
         """The generator's Fourier-PE volumes: they depend only on the fixed angle grid
         and the frozen frequency buffers, so they are built again only when G or one of
-        those buffers changed (a new state, or weights loaded into it)."""
+        those buffers changed (a new state, or weights loaded into it). None for an arch
+        without Fourier PE."""
         sig = (id(state.G),) + tuple(
             (b.data_ptr(), b._version) for name, b in state.G.named_buffers() if name.endswith((".freqs", ".phase"))
         )
@@ -278,14 +285,19 @@ class Trainer:
         blur = sched.blur_kernel if self.blur_init_sigma > 0 else None
         return warmup_fn(x, st, sched.dropout_ratio, self.raydrop_const, blur)
 
+    def _g_draws(self, G, st, train: bool):
+        """The draws of one generator forward from st, in the JAX step's order: the
+        azimuth shift (train mode with aug_coords), the logistic ray-drop noise (where G
+        has a measurement model). An arch without them draws nothing."""
+        shift = st.uniform() if train and G.synthesis_network.aug_coords else None
+        noise = st.logistic((1, *self.resolution)) if G.has_raydrop else None
+        return {"gumbel_noise": noise, "aug_shift": shift}
+
     def _fake(self, state: TrainState, st) -> torch.Tensor:
-        """One train-mode generator forward on draws from st: z, the azimuth shift (with
-        aug_coords), the logistic ray-drop noise, in the JAX step's order."""
+        """One train-mode generator forward on draws from st: z, then the forward's own."""
         G = state.G
         z = st.normal((self.z_dim,))
-        shift = st.uniform() if G.synthesis_network.aug_coords else None
-        noise = st.logistic((1, *self.resolution))
-        o = G(z, None, gumbel_noise=noise, pe_cache=self.pe_cache_for(state), train=True, aug_shift=shift)
+        o = G(z, None, pe_cache=self.pe_cache_for(state), train=True, **self._g_draws(G, st, True))
         return o["image"]
 
     def g_phase(self, state: TrainState, x_real: torch.Tensor, st, sched: Schedule) -> torch.Tensor:
@@ -322,12 +334,10 @@ class Trainer:
         pe_cache = self.pe_cache_for(state)
         z = sp.normal((self.z_dim,))
         with torch.no_grad():
-            w = G(z, None, gumbel_noise=sp.logistic((1, *self.resolution)), pe_cache=pe_cache)["w"]
+            w = G(z, None, pe_cache=pe_cache, **self._g_draws(G, sp, False))["w"]
         noise = sp.normal((1, *self.resolution)) / math.sqrt(float(np.prod(self.resolution)))
         w = w.detach().requires_grad_(True)
-        shift = sp.uniform() if G.synthesis_network.aug_coords else None
-        img = G(w, None, gumbel_noise=sp.logistic((1, *self.resolution)), pe_cache=pe_cache, train=True,
-                aug_shift=shift, input_w=True)["image"]
+        img = G(w, None, pe_cache=pe_cache, train=True, input_w=True, **self._g_draws(G, sp, True))["image"]
         (gw,) = torch.autograd.grad((img * noise).sum(), w, create_graph=True)
         lengths = gw.square().sum(dim=-1).sqrt()
         pl_ema = state.pl_ema + 0.01 * (lengths.mean().detach() - state.pl_ema)

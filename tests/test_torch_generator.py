@@ -24,10 +24,10 @@ from dusty_gan_v2_tpu.models.dusty_v2 import downsample_angle as j_downsample_an
 from dusty_gan_v2_tpu.ops import make_resample as j_make_resample
 from dusty_gan_v2_tpu_torch.convert import flatten_variables, load_jax_variables
 from dusty_gan_v2_tpu_torch.metrics import furthest_point_sampling, gather_points
-from dusty_gan_v2_tpu_torch.models import build_generator, build_pe_cache
+from dusty_gan_v2_tpu_torch.models import build_discriminator, build_generator, build_pe_cache
 from dusty_gan_v2_tpu_torch.models.dusty_v2 import downsample_angle
 from dusty_gan_v2_tpu_torch.ops import make_resample
-from dusty_gan_v2_tpu_torch.sampling import full_gen_cfg, sample, sample_and_downsample
+from dusty_gan_v2_tpu_torch.sampling import full_disc_cfg, full_gen_cfg, sample, sample_and_downsample
 
 RES = (8, 64)
 B = 3
@@ -242,6 +242,9 @@ def test_noise_drawn_from_a_generator(models):
 
 
 def test_other_archs_raise():
-    for arch in ("dusty_v1", "vanilla"):
+    """Every shipped arch builds (tests/test_torch_other_archs.py); an unknown one raises."""
+    for arch in ("dusty_v3", "stylegan2"):
         with pytest.raises(NotImplementedError):
             build_generator({**full_gen_cfg(), "arch": arch}, device="cpu")
+        with pytest.raises(NotImplementedError):
+            build_discriminator({**full_disc_cfg(), "arch": arch}, device="cpu")
