@@ -118,6 +118,27 @@
    through the real sets (its config sets no measurement_kwargs.raydrop_const: the reals
    take the dataset's).
 
+13. inversion and demos: configs/gans/dusty_v2.yaml's G at full width (64 x 512, ch_base 32,
+   ch_max 512, fp32; seeded, non-zero biases and w_avg) saved through training/checkpoint.py,
+   and phase 10's kind of fabricated KITTI tree. demo_inversion runs at its defaults (w,
+   500 + 500 steps), then w+ with --optimize_phase --hypersphere_z at 50 + 50: K1 launches
+   9 per G forward (1,001 and 101 forwards), the last loss finite and below the first, the
+   drop map (64, 512) float32 in [0, 1], the summary PNG 512 x 256. One stage-1 step (loss,
+   latent and phase gradients) and one stage-2 step (every parameter's gradient) from the
+   w+ run's state on the card and on the CPU: the loss within 1e-4 (relative), gradients
+   within 1e-2 of their largest, each or twice the one-ulp shift. A window of 20 stage-1
+   steps under the profiler gives the device's busy time and idle share. quick_demo at
+   B=8 (K1 9, a 1024 x 256 PNG); demo_interpolation 2d and 3d at 2 anchors x 4 frames on
+   the card and on the CPU on the same anchors (K1 9 a frame; colour indices differ on at
+   most 1e-3 of the pixels, points within 1e-4 of the depth range; the card's normals
+   against the CPU's normal_map of the card's points past 1e-4 on at most 1e-3 of the
+   pixels, or twice the share one ulp in the points moves on the CPU: closest-pair
+   near-ties and nearly collinear neighbours), then 2 x 30 frames for the rate; the
+   bird's-eye view of quick_demo's images on the card against the CPU (lit pixels past
+   1e-4 held to the same kind of bar: the card's scatter adds in no fixed order); the
+   image tick's panels timed. Phase 10's train_gan runs now write an image tick at iterations 8 and 16
+   (one G forward more each, K1 9) with the panels under the JAX CLI's tags.
+
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
 last lines are the kernels record and {"ok": true, "device": {...}}.
@@ -170,6 +191,7 @@ SFU_OPS_PER_S = F32_FLOPS_PER_S / 2 / 128 * 16
 # per-sample (C, H, W) of the fused bias-act sites of full_gen_cfg(): block 0 has one
 # site (bias_act1), blocks 1-4 two (bias_act1, bias_act2)
 K1_SITES = [((512, 4, 32), 1), ((256, 8, 64), 2), ((128, 16, 128), 2), ((64, 32, 256), 2), ((32, 64, 512), 2)]
+G_K1 = sum(n for _, n in K1_SITES)  # fused bias-act launches of a dusty_v2 G forward: 9
 B_SLICE, N_POINTS, K_POINTS = 8, 64 * 512, 2048
 FPS_BATCHES = (B_SLICE, 64, 128)  # the slice, the evaluation's batch, the rates phase's
 EMD_SEEDS = (0, 1, 2)
@@ -1679,6 +1701,16 @@ def payload_equal(a, b, where="state"):
     return [] if a == b else [where]
 
 
+def device_busy_ms(prof):
+    """The union of the card's kernel and copy intervals in a profile, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
 class StepWindow:
     """Wraps `cls.step` (Trainer's, or SemsegTrainer's) while a CLI runs: synchronizes the
     card before iteration `first` and after iteration `last` and times that window on the
@@ -1708,13 +1740,7 @@ class StepWindow:
                 window.ms = 1e3 * (time.perf_counter() - window._t0)
                 if window.profile:
                     window._prof.stop()
-                    spans = sorted((e.time_range.start, e.time_range.end) for e in window._prof.events()
-                                   if e.device_type == DeviceType.CUDA)
-                    busy, end = 0.0, -math.inf
-                    for a, b in spans:  # the union of the intervals (the copy stream overlaps the compute)
-                        busy += max(0.0, b - max(a, end))
-                        end = max(end, b)
-                    window.busy_ms = busy / 1e3
+                    window.busy_ms = device_busy_ms(window._prof)  # the copy stream overlaps the compute
             return m
 
         self.cls.step = step
@@ -1793,7 +1819,7 @@ def phase_cli(dev, smi, bare_step_rate):
         cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v2_bf16.yaml"))
         cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
         ck = cfg.training.checkpoint
-        ck.save_stats, ck.save_model, ck.validation = 4, CLI_SPLIT, 10**9
+        ck.save_stats, ck.save_model, ck.validation, ck.save_image = 4, CLI_SPLIT, 10**9, CLI_SPLIT
         B = int(cfg.training.batch_size)
         paths = {}
         for name, iters in (("first", CLI_SPLIT), ("full", CLI_ITERS)):
@@ -1809,11 +1835,20 @@ def phase_cli(dev, smi, bare_step_rate):
         torch.cuda.synchronize()
         rec["first_run_s"] = time.perf_counter() - t0
         first = read_and_reset(CHAIN_COUNTERS)
-        want_first = {k: CLI_SPLIT * v for k, v in STEP_LAUNCHES[False].items()}
+        want_first = {k: CLI_SPLIT * v + (G_K1 if k == "fused_bias_act" else 0) for k, v in STEP_LAUNCHES[False].items()}
         log("cli", f"train_gan, bf16 B=128, iterations 1-{CLI_SPLIT}: {rec['first_run_s']:.2f} s (process start "
             f"to checkpoint, first calls included); launches {first} (want {want_first})")
         assert first == want_first, (first, want_first)
         mid = log_dir / "a" / "models" / f"checkpoint_{CLI_SPLIT * B:010d}.ckpt"
+        # the image tick at iteration 8 (G_ema's fixed-z fakes: one more G forward) and the
+        # real frames' panels at the start, under the JAX CLI's tags
+        tick = np.load(log_dir / "a" / "images" / f"step_{CLI_SPLIT * B:010d}.npz")
+        start = np.load(log_dir / "a" / "images" / f"step_{1:010d}.npz")
+        panels = {"real/image/aug", "fake/image/orig", "fake/raydrop_prob", "fake/raydrop_mask", "fake/image",
+                  "fake/image/spectrum", "fake/normal", "fake/pointcloud"}
+        assert panels <= set(tick.files) and tick["fake/pointcloud"].shape == (8, 3, 512, 512), tick.files
+        assert all(np.isfinite(tick[k]).all() for k in panels) and "real/pointcloud" in start.files, start.files
+        rec["image_tick_panels"] = sorted(tick.files)
 
         # the state loaded on resume equals the state saved, bit for bit
         template = Trainer(load_config(str(paths["full"])), device=dev, seed=0).init_state(seed=5)
@@ -1832,7 +1867,7 @@ def phase_cli(dev, smi, bare_step_rate):
             torch.cuda.synchronize()
             rec["resume_run_s"] = time.perf_counter() - t0
         second = read_and_reset(CHAIN_COUNTERS)
-        want_second = {k: (CLI_ITERS - CLI_SPLIT - 1) * v + STEP_LAUNCHES[True][k]
+        want_second = {k: (CLI_ITERS - CLI_SPLIT - 1) * v + STEP_LAUNCHES[True][k] + (G_K1 if k == "fused_bias_act" else 0)
                        for k, v in STEP_LAUNCHES[False].items()}
         n_win = CLI_WINDOW[1] - CLI_WINDOW[0] + 1
         rec["cli_window_ms_per_iter"] = window.ms / n_win
@@ -2437,6 +2472,325 @@ def phase_other_archs(dev, smi):
     return rec
 
 
+# phase 13: GAN inversion and the demos at the full width of configs/gans/dusty_v2.yaml (64 x 512,
+# ch_base 32, ch_max 512, float32, TF32 off); a seeded G with non-zero biases and w_avg stands in
+# for a trained checkpoint, phase 10's kind of fabricated tree for KITTI Raw
+INV_DEFAULT_STEPS = (500, 500)  # demo_inversion's defaults: the run a user pays for, not cut
+INV_WPLUS_STEPS = (50, 50)  # w+ with --optimize_phase --hypersphere_z
+INV_PROFILE_STEPS = 20  # stage-1 steps in the profiled window
+INTERP_GATE, INTERP_RATE = (2, 4), (2, 30)  # anchors x frames per anchor: card vs CPU, then the rate
+# shares of pixels allowed past 1e-4 card against CPU, or twice the share one ulp moves on the CPU
+NORMAL_FLIP_BAR = 1e-3  # normals on equal points (closest-pair near-ties, nearly collinear neighbours)
+BEV_BAR = 1e-3  # lit BEV pixels (normal colours, bilinear weights at their 1e-3 drop line)
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR (no imaging library on the card's machine)."""
+    data = Path(path).read_bytes()[:24]
+    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", path
+    return tuple(int.from_bytes(data[i : i + 4], "big") for i in (16, 20))
+
+
+def inversion_checkpoint(dev, tmp):
+    """configs/gans/dusty_v2.yaml's G (seed 0; biases N(0, 0.1^2) and w_avg the mean mapped
+    w, as after training) saved through training/checkpoint.py, the fabricated tree its
+    dataset root. Returns the path."""
+    from dusty_gan_v2_tpu_torch.training.checkpoint import save_checkpoint
+    from dusty_gan_v2_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v2.yaml"))
+    cfg.dataset.root = str(tmp / "kitti_raw")
+    tr = Trainer(cfg.to_dict(), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        for k, prm in st.G_ema.named_parameters():
+            if k.endswith("bias"):
+                prm.normal_(0.0, 0.1, generator=gen)
+        st.G_ema.w_avg.copy_(st.G_ema.mapping_network(torch.randn(4096, 512, device=dev, generator=gen)).mean(0, keepdim=True))
+    path = tmp / "inversion.ckpt"
+    save_checkpoint(str(path), cfg, st, tr.angle, 0)
+    del tr, st
+    torch.cuda.empty_cache()
+    return str(path)
+
+
+def inversion_run(dev, ckpt, root, out, extra=()):
+    """demo_inversion.main on the card; the gates; seconds per stage and launches."""
+    from dusty_gan_v2_tpu_torch.cli import demo_inversion
+
+    args = demo_inversion.parse_args(["--ckpt_path", ckpt] + list(extra))
+    steps = (args.num_steps_1st, args.num_steps_2nd)
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    res = demo_inversion.main(["--ckpt_path", ckpt, "--dataset_root", root, "--out_dir", str(out), "--device", str(dev)]
+                              + list(extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_and_reset(CHAIN_COUNTERS)
+    forwards = steps[0] + steps[1] + 1  # every step's forward and the final one
+    sid = res["sample_id"]
+    prob = np.load(out / f"raydrop_prob_{sid:010d}.npy")
+    losses = res["losses_1st"] + res["losses_2nd"]
+    sec = res["seconds"]
+    rec = {"args": list(extra), "steps": steps, "sample_id": sid, "wall_s": wall, "seconds": sec,
+           "stage1_ms_per_step": 1e3 * sec["1"] / steps[0], "stage2_ms_per_step": 1e3 * sec["2"] / steps[1],
+           "launches": launches, "forwards": forwards, "first_loss": losses[0], "last_loss": losses[-1],
+           "losses_every_100": losses[::100], "summary_png": png_size(out / f"summary_{sid:010d}.png"),
+           "raydrop_prob_mean": float(prob.mean()), "latent": res["latent"], "phase": res["phase"]}
+    log("inversion", f"demo_inversion {' '.join(extra) or '(defaults: w, 500 + 500)'}: frame {sid}, {wall:.2f} s "
+        f"(setup {sec['setup']:.2f}, stage 1 {sec['1']:.2f} = {rec['stage1_ms_per_step']:.3f} ms a step, stage 2 "
+        f"{sec['2']:.2f} = {rec['stage2_ms_per_step']:.3f} ms a step, outputs {sec['outputs']:.2f}); loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {launches} ({forwards} G forwards); drop map mean "
+        f"{rec['raydrop_prob_mean']:.4f}; summary {rec['summary_png']}")
+    assert launches == {"fused_bias_act": G_K1 * forwards, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, launches
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], (losses[0], losses[-1])
+    assert prob.shape == (64, 512) and prob.dtype == np.float32 and 0.0 <= prob.min() and prob.max() <= 1.0
+    assert rec["summary_png"] == (512, 4 * 64), rec["summary_png"]
+    return rec
+
+
+def inversion_target(ckpt, root, sid, device, latent_type="w+"):
+    """(Inversion of frame `sid` on `device`, G_ema) as demo_inversion builds them."""
+    from dusty_gan_v2_tpu_torch.cli.demo_inversion import Inversion
+    from dusty_gan_v2_tpu_torch.cli.test_gan import fixed_logistic_noise
+    from dusty_gan_v2_tpu_torch.geometry import CoordBridge
+    from dusty_gan_v2_tpu_torch.pretrained import autoload_ckpt
+
+    ck = autoload_ckpt(ckpt, device)
+    item = KITTIRaw(root, "test", shape=(64, 512), min_depth=1.45, max_depth=80.0)[sid]
+    coord = CoordBridge(64, 512, 1.45, 80.0, angle=ck["angle"], device=device)
+    np.random.seed(0)
+    noise = torch.as_tensor(fixed_logistic_noise(64, 512), device=device)
+    G = ck["G_ema"]
+    inv = Inversion(coord, ck["angle"], torch.as_tensor(item["depth"][None], device=device),
+                    torch.as_tensor(item["mask"][None], device=device), noise, latent_type, G.synthesis_network.num_styles)
+    return inv, G
+
+
+def inversion_grads(inv, G, latent, phase):
+    """One stage-1 step's loss and gradients (latent, phase) and one stage-2 step's
+    gradients (every parameter of a copy of G; none for the mapping network under w+)."""
+    lat, ph = latent.clone().requires_grad_(True), phase.clone().requires_grad_(True)
+    loss, _ = inv(G, lat, ph)
+    g_lat, g_ph = torch.autograd.grad(loss, [lat, ph])
+    G2 = copy.deepcopy(G).requires_grad_(True)
+    names, params = zip(*G2.named_parameters())
+    loss2, _ = inv(G2, latent, phase)
+    g2 = torch.autograd.grad(loss2, params, allow_unused=True)
+    stage2 = {n: (torch.zeros_like(p) if g is None else g) for n, p, g in zip(names, params, g2)}
+    return float(loss.detach()), {"latent": g_lat, "phase": g_ph}, stage2
+
+
+def inversion_card_vs_cpu(dev, ckpt, root, sid, latent, phase):
+    """One stage-1 and one stage-2 step from the w+ run's final latent and phase, on the
+    card and on the CPU (same frame, same noise): the loss within 1e-4 (relative), the
+    gradients within 1e-2 of their largest magnitude, each or twice the shift one ulp in
+    G's weights causes on the CPU where that is larger."""
+    inv_d, G_d = inversion_target(ckpt, root, sid, dev)
+    inv_c, G_c = inversion_target(ckpt, root, sid, "cpu")
+    lat, ph = latent.detach().cpu(), phase.detach().cpu()
+    loss_d, s1_d, s2_d = inversion_grads(inv_d, G_d, lat.to(dev), ph.to(dev))
+    loss_c, s1_c, s2_c = inversion_grads(inv_c, G_c, lat, ph)
+    G_ulp = copy.deepcopy(G_c)
+    with torch.no_grad():
+        for prm in G_ulp.parameters():
+            prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    loss_u, s1_u, s2_u = inversion_grads(inv_c, G_ulp, lat, ph)
+    errs = {"loss": abs(loss_d - loss_c) / abs(loss_c), "stage1": rel_max_err(s1_d, s1_c), "stage2": rel_max_err(s2_d, s2_c)}
+    ulp = {"loss": abs(loss_u - loss_c) / abs(loss_c), "stage1": rel_max_err(s1_u, s1_c), "stage2": rel_max_err(s2_u, s2_c)}
+    bars = {"loss": max(1e-4, 2 * ulp["loss"]), "stage1": max(1e-2, 2 * ulp["stage1"]),
+            "stage2": max(1e-2, 2 * ulp["stage2"])}
+    rec = {"loss_cpu": loss_c, "errors": errs, "one_ulp": ulp, "bars": bars,
+           "phase_grad_cpu": s1_c["phase"].reshape(-1).tolist(), "phase_grad_card": s1_d["phase"].reshape(-1).tolist()}
+    log("inversion", f"card vs CPU, w+ step from the w+ run's state (frame {sid}): loss {loss_d:.6f} / {loss_c:.6f}; "
+        f"errors {errs}; one-ulp shift {ulp}; bars {bars}; phase gradient card {rec['phase_grad_card']} CPU "
+        f"{rec['phase_grad_cpu']}")
+    assert all(errs[k] <= bars[k] for k in errs), (errs, bars)
+    return rec
+
+
+def inversion_profile(dev, ckpt, root, sid):
+    """Stage-1 steps (w, B=1) at the card: ms a step unprofiled and under torch.profiler,
+    the device's busy time, and the idle share over the unprofiled window."""
+    from dusty_gan_v2_tpu_torch.cli.demo_inversion import LatentStage
+
+    inv, G = inversion_target(ckpt, root, sid, dev, "w")
+    stage = LatentStage(inv, G, G.w_avg.clone(), torch.zeros((1, 2, 1, 1), device=dev), INV_DEFAULT_STEPS[0], 5e-2)
+    n = INV_PROFILE_STEPS
+    for i in range(5):
+        stage.step(100 + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        stage.step(200 + i)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            stage.step(300 + i)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0) / n
+    busy = device_busy_ms(prof) / n
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / n
+    rec = {"step_ms": wall_ms, "profiled_step_ms": prof_ms, "device_busy_ms": busy, "device_records_per_step": kernels,
+           "device_idle_share": max(0.0, 1.0 - busy / wall_ms), "profiled_idle_share": max(0.0, 1.0 - busy / prof_ms)}
+    log("inversion", f"stage-1 steps (w, B=1), {n} in a window: {wall_ms:.3f} ms a step ({prof_ms:.3f} profiled); device "
+        f"busy {busy:.3f} ms a step over {kernels:.0f} device records; idle share {rec['device_idle_share']:.3f} "
+        f"({rec['profiled_idle_share']:.3f} of the profiled window)")
+    return rec
+
+
+def bev_card_vs_cpu(dev, inv):
+    """CoordBridge's bird's-eye view of `inv` (B, 1, 64, 512) on the card and the CPU: the
+    share of lit pixels past 1e-4, held to BEV_BAR or twice the share one ulp in `inv`
+    moves on the CPU (a pixel's colour is a normal, and nearly collinear neighbours' normals
+    follow rounding; the card's scatter adds in no fixed order): not to the bit."""
+    from dusty_gan_v2_tpu_torch.geometry import make_Rt
+
+    angle = load_angle(device=dev)
+    coord_d, coord_c = make_coord_bridge(angle), make_coord_bridge(angle.cpu())
+    inv_c = inv.cpu()
+    bev_d = coord_d.make_birds_eye_view(inv.to(dev), make_Rt(z=0.7, device=dev)).cpu()
+    bev_c = coord_c.make_birds_eye_view(inv_c, make_Rt(z=0.7))
+    bev_u = coord_c.make_birds_eye_view(torch.nextafter(inv_c, torch.full_like(inv_c, math.inf)), make_Rt(z=0.7))
+    lit = bev_c.amax(dim=1) > 0
+    off = (bev_d - bev_c).abs().amax(dim=1) > 1e-4
+    off_u = (bev_u - bev_c).abs().amax(dim=1) > 1e-4
+    share, share_u = float(off[lit].float().mean()), float(off_u[lit].float().mean())
+    return {"max_abs_err": float((bev_d - bev_c).abs().max()), "lit_share": float(lit.float().mean()),
+            "lit_share_past_1e-4": share, "lit_share_past_1e-4_one_ulp": share_u, "bar": max(BEV_BAR, 2 * share_u)}
+
+
+def demo_runs(dev, ckpt, tmp):
+    """quick_demo at B=8; demo_interpolation 2d and 3d on the card against the CPU on the
+    same anchors; their rates; the BEV card against CPU; the image tick's panels."""
+    from dusty_gan_v2_tpu_torch.cli import demo_interpolation, quick_demo
+    from dusty_gan_v2_tpu_torch.cli.train_gan import image_panels
+
+    rec = {}
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    out = quick_demo.main(["--ckpt_path", ckpt, "--out", str(tmp / "quick.png"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    rec["quick_demo_s"] = time.perf_counter() - t0
+    rec["quick_demo_launches"] = read_and_reset(CHAIN_COUNTERS)
+    rec["quick_demo_png"] = png_size(tmp / "quick.png")
+    log("demos", f"quick_demo B=8: {rec['quick_demo_s']:.3f} s (process-level call: checkpoint load, sample, PNG); "
+        f"launches {rec['quick_demo_launches']}; PNG {rec['quick_demo_png']}")
+    assert rec["quick_demo_launches"]["fused_bias_act"] == G_K1 and rec["quick_demo_png"] == (1024, 4 * 64)
+
+    anchors = torch.randn(INTERP_GATE[0], 512, generator=torch.Generator().manual_seed(14))
+    normal = lambda shape: anchors.reshape(shape)  # noqa: E731  (the same anchors on the card and the CPU)
+    runs = {}
+    for mode in ("2d", "3d"):
+        for device in (str(dev), "cpu"):
+            argv = ["--ckpt_path", ckpt, "--mode", mode, "--num_anchors", str(INTERP_GATE[0]), "--frames_per_anchor",
+                    str(INTERP_GATE[1]), "--out", str(tmp / f"interp_{mode}_{device[:4]}.{'gif' if mode == '2d' else 'npz'}"),
+                    "--device", device]
+            read_and_reset(CHAIN_COUNTERS)
+            runs[mode, device] = demo_interpolation.main(argv, normal=normal)
+            k1 = read_and_reset(CHAIN_COUNTERS)["fused_bias_act"]
+            frames = INTERP_GATE[0] * INTERP_GATE[1]
+            assert k1 == (G_K1 * frames if device != "cpu" else 0), (mode, device, k1)
+            assert Path(runs[mode, device]["path"]).is_file()
+    f_d, f_c = np.stack(runs["2d", str(dev)]["frames"]), np.stack(runs["2d", "cpu"]["frames"])
+    rec["interp_2d_index_mismatch_share"] = float((f_d != f_c).mean())
+    p_d, p_c = runs["3d", str(dev)]["points"], runs["3d", "cpu"]["points"]
+    n_d, n_c = runs["3d", str(dev)]["normals"], runs["3d", "cpu"]["normals"]
+    rec["interp_3d_points_max_abs_err_m"] = float(np.abs(p_d - p_c).max())
+    # the generator's outputs differ by ~1e-5 m between the two runs (gated by the points);
+    # a unit normal of nearly collinear neighbours moves by more than 1e-4 for that, so the
+    # two runs' normals are recorded, and the card's normal_map is held to the CPU's on the
+    # card's own points: the pixels past 1e-4 there are closest-pair near-ties
+    rec["interp_3d_normals_share_past_1e-4_runs"] = float((np.abs(n_d - n_c).max(axis=-1) > 1e-4).mean())
+    T = p_d.shape[0]
+    pm = torch.from_numpy(p_d).permute(0, 2, 1).reshape(T, 3, 64, 512)
+    n_ref = make_coord_bridge(load_angle(device="cpu")).convert(pm, "point_map", "normal_map")
+    n_ref = n_ref.reshape(T, 3, -1).permute(0, 2, 1).numpy()
+    off = np.abs(n_d - n_ref).max(axis=-1) > 1e-4
+    rec["interp_3d_normals_share_past_1e-4"] = float(off.mean())
+    rec["interp_3d_normals_max_abs_err_elsewhere"] = float(np.abs(n_d - n_ref)[~off].max())
+    # how many pixels one ulp in the points moves past 1e-4 on the CPU (nearly collinear
+    # neighbours; the card's fused multiply-adds round the cross products otherwise)
+    pm_ulp = torch.nextafter(pm, torch.full_like(pm, math.inf))
+    n_ulp = make_coord_bridge(load_angle(device="cpu")).convert(pm_ulp, "point_map", "normal_map")
+    n_ulp = n_ulp.reshape(T, 3, -1).permute(0, 2, 1).numpy()
+    rec["interp_3d_normals_share_past_1e-4_one_ulp"] = float((np.abs(n_ulp - n_ref).max(axis=-1) > 1e-4).mean())
+    normal_bar = max(NORMAL_FLIP_BAR, 2 * rec["interp_3d_normals_share_past_1e-4_one_ulp"])
+    log("demos", f"demo_interpolation {INTERP_GATE[0]} x {INTERP_GATE[1]} frames, card vs CPU on the same anchors: 2d "
+        f"colour-index mismatch share {rec['interp_2d_index_mismatch_share']:.2e} (bar 1e-3); 3d points max abs err "
+        f"{rec['interp_3d_points_max_abs_err_m']:.3g} m (bar 8e-3), normals of the two runs past 1e-4 on a share "
+        f"{rec['interp_3d_normals_share_past_1e-4_runs']:.2e}; the card's normals against the CPU's on the card's points "
+        f"past 1e-4 on a share {rec['interp_3d_normals_share_past_1e-4']:.2e} (one ulp in the points: "
+        f"{rec['interp_3d_normals_share_past_1e-4_one_ulp']:.2e}; bar {normal_bar:.2e}), elsewhere max "
+        f"{rec['interp_3d_normals_max_abs_err_elsewhere']:.3g}")
+    gates = [("interp 2d colour indices", rec["interp_2d_index_mismatch_share"] <= 1e-3),
+             ("interp 3d points", rec["interp_3d_points_max_abs_err_m"] <= 1e-4 * 80.0),
+             ("interp 3d normals", rec["interp_3d_normals_share_past_1e-4"] <= normal_bar)]
+
+    for mode in ("2d", "3d"):  # the rate: a longer path, B=1 a frame
+        argv = ["--ckpt_path", ckpt, "--mode", mode, "--num_anchors", str(INTERP_RATE[0]), "--frames_per_anchor",
+                str(INTERP_RATE[1]), "--out", str(tmp / f"rate_{mode}"), "--device", str(dev)]
+        r = demo_interpolation.main(argv)
+        rec[f"interp_{mode}_frames_per_s"] = r["frames_per_s"]
+    read_and_reset(CHAIN_COUNTERS)
+    log("demos", f"demo_interpolation frames/s at B=1 over {INTERP_RATE[0] * INTERP_RATE[1]} frames: 2d "
+        f"{rec['interp_2d_frames_per_s']:.1f} (GIF strip indices to the host each frame), 3d "
+        f"{rec['interp_3d_frames_per_s']:.1f} (points and normals to the host each frame)")
+
+    inv = torch.clamp((out["image"] + 1) / 2, 0, 1)
+    rec["bev"] = bev_card_vs_cpu(dev, inv)
+    log("demos", f"BEV of quick_demo's B=8 card vs CPU: {rec['bev']}")
+    gates.append(("BEV", rec["bev"]["lit_share_past_1e-4"] <= rec["bev"]["bar"] and rec["bev"]["lit_share"] > 0))
+
+    # the image tick's panels (train_gan.py's log_images twins) on quick_demo's fakes
+    coord = make_coord_bridge(load_angle(device=dev))
+    fakes = {k: out[k] for k in ("image", "image_orig", "raydrop_logit", "raydrop_mask")}
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        panels = {**image_panels("real", image_aug=out["image"]), **image_panels("fake", coord, **fakes)}
+        times.append(1e3 * (time.perf_counter() - t0))
+    rec["image_tick_panels_ms"] = statistics.median(times)
+    assert len(panels) == 8 and all(np.isfinite(v).all() for v in panels.values())
+    log("demos", f"image tick panels (B=8 fakes + augmented reals, to the host): {rec['image_tick_panels_ms']:.3f} ms "
+        f"(median of 5; {', '.join(f'{t:.1f}' for t in times)})")
+    failed = [name for name, ok in gates if not ok]
+    assert not failed, failed
+    return rec
+
+
+def phase_inversion(dev, smi):
+    """demo_inversion at the defaults and w+ with the phase, card vs CPU steps, the profiled
+    stage-1 window, then quick_demo, demo_interpolation and the panels."""
+    import tempfile
+
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inversion_") as tmp:
+        tmp = Path(tmp)
+        fabricate_kitti(tmp / "kitti_raw")
+        ckpt = inversion_checkpoint(dev, tmp)
+        root = str(tmp / "kitti_raw")
+        rec["default"] = inversion_run(dev, ckpt, root, tmp / "inv_w")
+        rec["wplus"] = inversion_run(dev, ckpt, root, tmp / "inv_wplus", [
+            "--latent_type", "w+", "--optimize_phase", "--hypersphere_z", "--num_steps_1st", str(INV_WPLUS_STEPS[0]),
+            "--num_steps_2nd", str(INV_WPLUS_STEPS[1])])
+        assert float(rec["wplus"]["phase"].abs().max()) > 0  # the phase moved
+        sid = rec["wplus"]["sample_id"]
+        rec["card_vs_cpu"] = inversion_card_vs_cpu(dev, ckpt, root, sid, rec["wplus"]["latent"], rec["wplus"]["phase"])
+        for r in ("default", "wplus"):
+            rec[r]["phase"] = rec[r]["phase"].reshape(-1).tolist()
+            del rec[r]["latent"]
+        rec["profile"] = inversion_profile(dev, ckpt, root, rec["default"]["sample_id"])
+        read_and_reset(CHAIN_COUNTERS)
+        rec["demos"] = demo_runs(dev, ckpt, tmp)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -2458,9 +2812,11 @@ def main():
     cli_rec = phase_cli(dev, smi, train_rec["rates"][0]["imgs_per_s"])
     semseg_rec = phase_semseg(dev, smi)
     other_rec = phase_other_archs(dev, smi)
-    # this slice's main path is the command lines: K1, K4 and K5 over train_gan's 16 iterations
-    # (8, a checkpoint, 8 resumed), K2 and K3 in test_gan
-    k1["launches"] = cli_rec["launches"]["fused_bias_act"]
+    inversion_rec = phase_inversion(dev, smi)
+    # this slice's main path is demo_inversion at its defaults: K1 at each of its 1,001 G
+    # forwards; K4 and K5 over train_gan's 16 iterations (8, a checkpoint, 8 resumed), K2 and
+    # K3 in test_gan (phase 10), the paths that run them
+    k1["launches"] = inversion_rec["default"]["launches"]["fused_bias_act"]
     k4["launches"], k5["launches"] = cli_rec["launches"]["fused_chain_fwd"], cli_rec["launches"]["fused_chain_bwd"]
     k2["launches"], k3["launches"] = cli_rec["test_gan_launches"]["fps"], cli_rec["test_gan_launches"]["emd"]
     ks = [k1, k2, k3, k4, k5]
@@ -2471,7 +2827,7 @@ def main():
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
-        "other_archs": other_rec,
+        "other_archs": other_rec, "inversion": inversion_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))

@@ -11,7 +11,9 @@ the depth plane ships, in dataset.upload_dtype; the step rebuilds the mask as
 depth > 0), one `Trainer.step` per iteration, the step's metrics kept on the device
 until the training.checkpoint.save_stats tick and then brought to the host in one
 transfer, FPD/KPD validation every `validation` iterations when a PointNet is given,
-side samples every `save_image` iterations (written as arrays to <log_dir>/images),
+side samples every `save_image` iterations (written to <log_dir>/images/step_<imgs>.npz: the
+raw arrays and the JAX CLI's image panels under its TensorBoard tags, `image_panels`; the
+real frames' panels once at the start, in step_0000000001.npz),
 and a checkpoint every `save_model` iterations and at the last. Scalars keep the JAX
 CLI's names; they go to stdout and to <log_dir>/stats.jsonl.
 
@@ -19,7 +21,7 @@ Every draw is keyed by (seed, iteration): the step's by fold_seed(seed, iteratio
 the side samples' by fold_seed(seed, SIDE, 2i + 1) and (seed, SIDE, 2i), and a resumed
 run skips the sampler's indices of the iterations done, so that it trains on what the
 uninterrupted run would have. imgs/s counts the iterations of this run only.
-Not ported yet: TensorBoard and its image panels, --distributed and orbax checkpoints.
+Not ported yet: the TensorBoard writer, --distributed and orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -38,15 +40,15 @@ import torch
 
 from ..datasets.kitti import DevicePrefetcher, InfiniteSampler, KITTIRaw, Prefetcher, to_device
 from ..evaluation import features
-from ..geometry import CoordBridge
+from ..geometry import CoordBridge, render_point_clouds
 from ..metrics import build_pointnet, compute_frechet_distance, compute_squared_mmd
 from ..parallel import PerSampleStream, fold_seed
 from ..training import Trainer, fetch_reals
 from ..training.checkpoint import load_checkpoint, save_checkpoint
-from ..utils import init_random_seed, resolve_device
+from ..utils import colorize, init_random_seed, points_to_normal_2d, power_spectrum_2d, resolve_device, tanh_to_sigmoid
 from ..utils.config import load_config, save_config
 
-__all__ = ["main", "validation_fpd_kpd", "SIDE", "VALIDATION"]
+__all__ = ["main", "validation_fpd_kpd", "image_panels", "SIDE", "VALIDATION"]
 
 # fold_seed domains of the draws outside the step (the step's own are (seed, iteration))
 SIDE, VALIDATION, FIXED_Z = 1 << 32, (1 << 32) + 1, (1 << 32) + 2
@@ -78,6 +80,41 @@ def validation_fpd_kpd(trainer: Trainer, state, loader_factory, pointnet, real_f
         f"pointcloud/frechet_distance_{k}k": compute_frechet_distance(fake, real),
         f"pointcloud/squared_mmd_{k}k": compute_squared_mmd(fake, real),
     }
+
+
+@torch.no_grad()
+def image_panels(tag: str, coord: Optional[CoordBridge] = None, image=None, image_orig=None, image_aug=None,
+                 raydrop_logit=None, raydrop_mask=None) -> Dict[str, np.ndarray]:
+    """The JAX CLI's TensorBoard image panels (train_gan.py::log_images) as
+    {tag/name: (B, C, H, W) float32 array}: colorized range images, the drop probability
+    and mask, and, with `image` and `coord`, the power spectrum, the surface normals and
+    a bird's-eye render from 0.7 above the sensor."""
+    out = {}
+    clip01 = lambda x: torch.clamp(tanh_to_sigmoid(x), 0, 1)  # noqa: E731
+    if image_orig is not None:
+        out[f"{tag}/image/orig"] = colorize(clip01(image_orig))
+    if image_aug is not None:
+        out[f"{tag}/image/aug"] = colorize(clip01(image_aug))
+    if raydrop_logit is not None:
+        out[f"{tag}/raydrop_prob"] = colorize(torch.sigmoid(raydrop_logit))
+    if raydrop_mask is not None:
+        out[f"{tag}/raydrop_mask"] = raydrop_mask
+    if image is not None and coord is not None:
+        inv_depth = clip01(image.float())
+        pm = coord.convert(inv_depth, "inv_depth_norm", "point_map") / coord.max_depth
+        nm = points_to_normal_2d(pm, mode="closest")
+        B = pm.shape[0]
+        t = torch.tensor([[0.0, 0.0, 0.7]], device=pm.device)
+        bev = render_point_clouds(pm.reshape(B, 3, -1).transpose(1, 2), nm.reshape(B, 3, -1).transpose(1, 2),
+                                  size=image.shape[-1], t=t)
+        spec = power_spectrum_2d(inv_depth)
+        spec = spec - spec.min()
+        spec = (spec / spec.max()).astype(np.float32)
+        out[f"{tag}/image"] = colorize(inv_depth)
+        out[f"{tag}/image/spectrum"] = colorize(torch.from_numpy(spec))
+        out[f"{tag}/normal"] = nm
+        out[f"{tag}/pointcloud"] = torch.clamp(bev, 0, 1)
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -144,6 +181,17 @@ def main(argv: Optional[List[str]] = None):
         random_weights = args.pointnet_ckpt == "random"
         pointnet = build_pointnet(device, state_dict_path=None if random_weights else args.pointnet_ckpt)
     real_feats_cache: Dict = {}
+    coord = CoordBridge(*trainer.resolution, trainer.min_depth, trainer.max_depth, angle=trainer.angle, device=device)
+    # the real frames' panels once, from the first frames the loader serves (read from the
+    # dataset again, so that the loader's stream is untouched)
+    first = itertools.islice(iter(InfiniteSampler(len(dataset), seed=int(cfg.random_seed))), start_iter * B,
+                             start_iter * B + 8)
+    frames = [dataset[int(j)] for j in first]
+    reals0 = fetch_reals({k: np.stack([f[k] for f in frames]) for k in ("depth", "mask")}, trainer.min_depth,
+                         trainer.max_depth, trainer.raydrop_const, device)
+    (log_dir / "images").mkdir(exist_ok=True)
+    np.savez_compressed(log_dir / "images" / f"step_{1:010d}.npz",
+                        **image_panels("real", coord, image=reals0["image"], raydrop_mask=reals0["raydrop_mask"]))
 
     total_iters = int(cfg.training.total_kimg * 1e3 / B)
     ckpt_cfg = cfg.training.checkpoint
@@ -200,9 +248,11 @@ def main(argv: Optional[List[str]] = None):
                 )
                 fakes = trainer.sample(state, z_fixed, generator=side(2 * i))
                 out = {"real_aug": reals_aug, **{k: v for k, v in fakes.items() if k != "w"}}
-                (log_dir / "images").mkdir(exist_ok=True)
+                panels = {**image_panels("real", image_aug=reals_aug),
+                          **image_panels("fake", coord, **{k: fakes.get(k) for k in (
+                              "image", "image_orig", "raydrop_logit", "raydrop_mask")})}
                 np.savez_compressed(log_dir / "images" / f"step_{num_imgs:010d}.npz",
-                                    **{k: v.float().cpu().numpy() for k, v in out.items()})
+                                    **{k: v.float().cpu().numpy() for k, v in out.items()}, **panels)
 
             if pointnet is not None and i % int(ckpt_cfg.validation) == 0:
                 def loader_factory():

@@ -2,8 +2,8 @@
 fixed laser-angle grid.
 
 Counterpart of dusty_gan_v2_tpu/geometry/coords.py (bilinear_resize, resize_angle_lut,
-CoordBridge) for the depth / inverse-depth family and point maps and sets. Surface
-normals and the bird's-eye view are not ported yet.
+CoordBridge) for the depth / inverse-depth family, point maps and sets, surface-normal
+maps (from depth, inv_depth_norm and point maps) and the bird's-eye view.
 
 Normalization convention: inv_depth_norm = min_depth / depth in (0, 1], zero == dropped.
 """
@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from .normals import estimate_surface_normal
+from .render import render_point_clouds
 
 __all__ = ["CoordBridge", "COORD_TYPES", "bilinear_resize", "resize_angle_lut"]
 
@@ -99,8 +101,6 @@ class CoordBridge:
             raise ValueError(f"unknown coordinate type: {src} or {tgt}")
         if src == tgt:
             return x
-        if "normal_map" in (src, tgt):
-            raise NotImplementedError("normal maps are not ported yet")
 
         if src == "depth":
             if tgt in ("inv_depth", "inv_depth_norm"):
@@ -111,7 +111,7 @@ class CoordBridge:
                 return inv_depth
             if tgt == "depth_norm":
                 return x / self.max_depth
-            if tgt in ("point_map", "point_set"):
+            if tgt in ("point_map", "point_set", "normal_map"):
                 pm = self.depth_to_point_map(x)
                 return pm if tgt == "point_map" else self.convert(pm, "point_map", tgt)
         elif src == "depth_norm":
@@ -134,7 +134,7 @@ class CoordBridge:
                 return x / self.min_depth
             if tgt in ("depth", "depth_norm"):
                 return self.convert(x / self.min_depth, "inv_depth", tgt)
-            if tgt in ("point_map", "point_set"):
+            if tgt in ("point_map", "point_set", "normal_map"):
                 valid = (x > tol).to(x.dtype)
                 inv_depth = x / self.min_depth
                 valid = valid * self.get_mask(inv_depth, "inv_depth").to(x.dtype)
@@ -148,6 +148,9 @@ class CoordBridge:
             if tgt in ("depth", "depth_norm", "inv_depth", "inv_depth_norm"):
                 depth = torch.linalg.vector_norm(x, dim=1, keepdim=True)
                 return depth if tgt == "depth" else self.convert(depth, "depth", tgt)
+            if tgt == "normal_map":
+                normals = -estimate_surface_normal(x / self.max_depth, d=2)
+                return torch.nan_to_num(normals, nan=0.0)
         raise NotImplementedError(f"{src} to {tgt}")
 
     def depth_to_point_map(self, depth):
@@ -159,3 +162,17 @@ class CoordBridge:
         y = depth * torch.cos(elev) * torch.sin(azim)
         z = depth * torch.sin(elev)
         return torch.cat([x, y, z], dim=1)
+
+    def make_birds_eye_view(self, inv_depth_norm: torch.Tensor, Rt) -> torch.Tensor:
+        """(B, 1, H, W) inv_depth_norm -> (B, 3, W, W) bird's-eye render from the
+        extrinsics Rt = (R, t), coloured by surface normals."""
+        from ..utils import points_to_normal_2d
+
+        R, t = Rt
+        W = inv_depth_norm.shape[-1]
+        points = self.convert(inv_depth_norm, "inv_depth_norm", "point_map") / self.max_depth
+        normal = points_to_normal_2d(points, mode="closest")
+        B = points.shape[0]
+        pts = points.reshape(B, 3, -1).transpose(1, 2)
+        cols = normal.reshape(B, 3, -1).transpose(1, 2)
+        return render_point_clouds(pts, cols, size=W, R=R, t=t)

@@ -181,8 +181,9 @@ class SynthesisBlock(nn.Module):
             h = self.conv2(h, next(ws), train=train)
             h = self.bias_act2(h)
         o = self.head(h, next(ws), train=train)
-        # skip accumulation in float32, all heads stacked so one resample serves them
-        o_stack = torch.cat([o[c["name"]].float() for c in self.out_ch if c["ch"] > 0], dim=1)
+        # skip accumulation in float32 (float64 stays), all heads stacked so one resample serves them
+        acc = torch.promote_types(h.dtype, torch.float32)
+        o_stack = torch.cat([o[c["name"]].to(acc) for c in self.out_ch if c["ch"] > 0], dim=1)
         if skip is not None:
             o_stack = o_stack + resample(skip, self.up_plan)
         return h, o_stack

@@ -91,7 +91,9 @@ def test_dusty_v1_train_writes_checkpoints_and_stats(trained):
     assert all(np.isfinite(v) for r in rows for v in r.values())
     assert state_a.step == 4 and type(state_a.G).__module__.endswith("dusty_v1")
     side = np.load(tmp / "a" / "images" / f"step_{2 * B:010d}.npz")
-    assert set(side.files) == {"real_aug", "image", "image_orig", "raydrop_logit", "raydrop_mask"}
+    panels = {"real/image/aug", "fake/image", "fake/image/spectrum", "fake/normal", "fake/pointcloud"}
+    assert set(side.files) == {"real_aug", "image", "image_orig", "raydrop_logit", "raydrop_mask"} | panels | {
+        "fake/image/orig", "fake/raydrop_prob", "fake/raydrop_mask"}
     assert side["image"].shape == (8, 1, *RES)
 
 
@@ -154,7 +156,8 @@ def test_vanilla_trains_and_checkpoints(trained):
         got, ref = ckpt[name].state_dict(), getattr(state_v, name).state_dict()
         assert set(got) == set(ref) and all(torch.equal(got[k], ref[k]) for k in ref), name
     side = np.load(tmp / "v" / "images" / f"step_{2 * B:010d}.npz")
-    assert set(side.files) == {"real_aug", "image"}
+    assert set(side.files) == {"real_aug", "image", "real/image/aug", "fake/image", "fake/image/spectrum",
+                               "fake/normal", "fake/pointcloud"}
 
 
 def test_jax_cli_reads_a_key_vanilla_lacks():
