@@ -138,12 +138,43 @@
    1e-4 held to the same kind of bar: the card's scatter adds in no fixed order); the
    image tick's panels timed. Phase 10's train_gan runs now write an image tick at iterations 8 and 16
    (one G forward more each, K1 9) with the panels under the JAX CLI's tags.
+14. parallel: data parallelism (parallel/mesh.py). (a) train_gan --distributed --coordinator
+   localhost:<free port> --num_processes 1 --process_id 0 under NCCL on phase 10's kind of
+   fabricated tree and configs/gans/dusty_v2_bf16.yaml at B=128, iterations 1-8 (ADA at 4 and
+   8, an image tick at 8), beside two runs without --distributed, the three under torch's
+   deterministic algorithms and cuDNN's deterministic convolutions (the default step is
+   not deterministic: two runs part by ~1e-3 in their losses): its stats equal a plain
+   run's within what the two plain runs differ by, K1 / K4 / K5 launch as in phase 10's
+   first run; a fourth run under NCCL in the default mode gives the imgs/s over iterations
+   5-8 and the gradient averages' bytes and ms a step (CUDA events: the all-reduce, and
+   the flat buffer's packing and unpacking). (b) Two processes of this script on the one card,
+   joined over gloo (asked for by init_distributed's backend; gloo stages CUDA tensors
+   through host memory), each on 16 rows of a global batch of 32: configs/gans/dusty_v2.yaml
+   (fp32, full width, TF32 off) through Trainer, from a state that one process took two
+   steps (Adam's moments populated) and wrote, iterations 16 (R1 + ADA + warmup), 17, 18 and
+   20 (ADA) from the trainer's own generator under deterministic algorithms; each iteration
+   against one process's step on the whole batch from the same state (the state the two
+   processes' earlier iterations made; on their own trajectories two runs part within two
+   steps, through raydrop decisions that flip): the losses and D's outputs within 1e-4
+   (the R1 penalty within 1e-2, phase 9's gradient bar), or twice what one ulp in every
+   weight moves them in the one-process run on the card where that is larger; the fakes with a raydrop
+   decision taken the other way are set aside and counted, as phase 9 does (at most
+   phase 9's 4 pixels per 4 fakes or twice the one-ulp run's, on at most half the fakes;
+   where every fake of a run has a flip, its D outputs on fakes are compared over all);
+   the last update within 1e-3 of its largest or twice the one-ulp run's; both children
+   must exit 0. (c) train_semseg --distributed at world 1 under NCCL, 8 steps of
+   configs/semseg/sim2real_w_gan_noise_dustyv2_bf16.yaml at B=120 on phase 11's kind of
+   tree, held to two plain runs by (a)'s rule (deterministic algorithms and one loader
+   thread in those three, so that the GTA drop draws come in one order), and a run with 4
+   loader threads gives the imgs/s over steps 5-8 beside phase 11's; the path launches
+   none of K1-K5.
 
 Any failed phase raises, so the exit code is non-zero and the last line is not
 printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
 last lines are the kernels record and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -151,6 +182,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -179,6 +211,7 @@ from dusty_gan_v2_tpu_torch.sampling import (
     train_cfg,
 )
 from dusty_gan_v2_tpu_torch.parallel import PerSampleStream, ReplayStream
+from dusty_gan_v2_tpu_torch.parallel import mesh
 from dusty_gan_v2_tpu_torch.training import Trainer, d_phase_loss, g_phase_loss, r1_penalty
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and non-tensor-core f32 rate
@@ -1269,7 +1302,7 @@ class RecordingStream(PerSampleStream):
         super().__init__(n, generator, device)
         self.log = [] if log is None else log
 
-    def with_batch(self, n):
+    def with_batch(self, n, parts=1):  # one process: the layout of parts is the identity
         return RecordingStream(n, self.generator, self.device, self.log)
 
     def _keep(self, t):
@@ -2791,6 +2824,372 @@ def phase_inversion(dev, smi):
     return rec
 
 
+# phase 14, data parallelism: (b)'s steps (R1 + ADA + warmup at 16, ADA at 20) at a global
+# batch of 32 (configs/gans/dusty_v2.yaml's), 2 x 16 in two processes on the one card
+PAR_ITERS, PAR_B, PAR_WORLD = (16, 17, 18, 20), 32, 2
+PAR_CHILD_TIMEOUT = 400
+PAR_GAN_WINDOW = (5, 8)  # (a)'s iterations timed
+SEMSEG_PAR_STEPS, SEMSEG_PAR_WINDOW = 8, (5, 8)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def stats_rows(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def rows_diff(a, b, skip=("stats/imgs_per_sec",)):
+    """{key: max |a - b|} over stats rows of two runs (lists elementwise)."""
+    assert [sorted(r) for r in a] == [sorted(r) for r in b], (a, b)
+    out = {}
+    for ra, rb in zip(a, b):
+        for k in ra:
+            if k not in skip:
+                d = float(np.abs(np.asarray(ra[k], np.float64) - np.asarray(rb[k], np.float64)).max())
+                out[k] = max(out.get(k, 0.0), d)
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warn-only: an op without one warns, and its name is
+    kept) and cuDNN's deterministic convolutions, so that two runs of a step can be equal.
+    Yields the list of the warnings' texts."""
+    prev = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    texts = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield texts
+            texts.extend(sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2], prev[3]
+
+
+def same_or_within(name, diff, run_to_run):
+    """(a)'s and (c)'s rule: the run under a process group equals a run without one within
+    what two runs without one differ by, key by key (exactly, where those two are equal)."""
+    bad = {k: (diff[k], run_to_run[k]) for k in diff if diff[k] > run_to_run[k]}
+    assert not bad, (name, bad)
+
+
+def parallel_gan_cli(dev, cli_rec):
+    """(a): train_gan at world 1 under NCCL beside two runs without a process group, the
+    three with deterministic algorithms; then a run under NCCL in the default mode for the
+    rate and the gradient averages' times."""
+    import tempfile
+
+    from dusty_gan_v2_tpu_torch.cli import train_gan
+    from dusty_gan_v2_tpu_torch.utils.config import load_config, save_config
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        tmp = Path(tmp)
+        fabricate_kitti(tmp / "kitti_raw")
+        cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v2_bf16.yaml"))
+        cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+        ck = cfg.training.checkpoint
+        ck.save_stats, ck.save_model, ck.validation, ck.save_image = 4, CLI_SPLIT, 10**9, CLI_SPLIT
+        B = int(cfg.training.batch_size)
+        cfg.training.total_kimg = CLI_SPLIT * B / 1e3
+        save_config(cfg, str(tmp / "gan.yaml"))
+        want = {k: CLI_SPLIT * v + (G_K1 if k == "fused_bias_act" else 0) for k, v in STEP_LAUNCHES[False].items()}
+        runs, grad_log = {}, None
+        for name in ("plain_a", "plain_b", "nccl", "nccl_rate"):
+            argv = ["--config", str(tmp / "gan.yaml"), "--log_dir", str(tmp / name), "--num_workers", "4",
+                    "--device", str(dev)]
+            if name.startswith("nccl"):
+                argv += ["--distributed", "--coordinator", f"localhost:{free_port()}", "--num_processes", "1",
+                         "--process_id", "0"]
+            read_and_reset(CHAIN_COUNTERS)
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                window = stack.enter_context(StepWindow(*PAR_GAN_WINDOW))
+                det = None if name == "nccl_rate" else stack.enter_context(deterministic())
+                if name == "nccl_rate":
+                    mesh.GRAD_LOG = []
+                try:
+                    train_gan.main(argv)
+                    torch.cuda.synchronize()
+                finally:
+                    grad_log, mesh.GRAD_LOG = mesh.GRAD_LOG, None
+            launches = read_and_reset(CHAIN_COUNTERS)
+            rows = stats_rows(tmp / name / "stats.jsonl")
+            n_win = PAR_GAN_WINDOW[1] - PAR_GAN_WINDOW[0] + 1
+            runs[name] = {"s": time.perf_counter() - t0, "launches": launches, "rows": rows,
+                          "window_imgs_per_s": 1e3 * B * n_win / window.ms, "nondeterministic_ops": det}
+            assert launches == want, (name, launches, want)
+            assert [r["iteration"] for r in rows] == [4, CLI_SPLIT], rows
+        assert not mesh.bound() and not torch.distributed.is_initialized()
+        # the gradient averages: G's and D's each iteration (no R1 in 1-8)
+        assert len(grad_log) == 2 * CLI_SPLIT, len(grad_log)
+        times = [[e0.elapsed_time(e1), e1.elapsed_time(e2), e2.elapsed_time(e3)] for _, e0, e1, e2, e3 in grad_log]
+        per_step = [[a + b for a, b in zip(times[2 * i], times[2 * i + 1])] for i in range(CLI_SPLIT)]
+        rec["grad_allreduce"] = {
+            "calls_per_step": 2, "bytes": [grad_log[0][0], grad_log[1][0]],
+            "bytes_per_step": grad_log[0][0] + grad_log[1][0],
+            "pack_collective_unpack_ms_per_step": per_step,
+            "collective_ms_per_step_after_first": statistics.mean(p[1] for p in per_step[1:]),
+            "pack_unpack_ms_per_step_after_first": statistics.mean(p[0] + p[2] for p in per_step[1:]),
+        }
+        run_to_run = rows_diff(runs["plain_b"]["rows"], runs["plain_a"]["rows"])
+        nccl_diff = rows_diff(runs["nccl"]["rows"], runs["plain_a"]["rows"])
+        rec.update(runs=runs, run_to_run=run_to_run, nccl_diff=nccl_diff,
+                   phase10_first_run_s=cli_rec["first_run_s"], phase10_cli_imgs_per_s=cli_rec["cli_imgs_per_s"])
+        g = rec["grad_allreduce"]
+        log("parallel", f"(a) train_gan --distributed at world 1 (NCCL), bf16 B={B}, iterations 1-{CLI_SPLIT}: "
+            f"{runs['nccl_rate']['s']:.2f} s; iterations {PAR_GAN_WINDOW[0]}-{PAR_GAN_WINDOW[1]} "
+            f"{runs['nccl_rate']['window_imgs_per_s']:.1f} imgs/s (phase 10's window 9-15 without a group: "
+            f"{cli_rec['cli_imgs_per_s']:.1f}; with deterministic algorithms: plain {runs['plain_a']['window_imgs_per_s']:.1f} "
+            f"and {runs['plain_b']['window_imgs_per_s']:.1f}, NCCL {runs['nccl']['window_imgs_per_s']:.1f}); launches "
+            f"{runs['nccl_rate']['launches']} (phase 10's first run: {want}); gradient averages {g['bytes']} bytes a "
+            f"step, NCCL all-reduce {g['collective_ms_per_step_after_first']:.4f} ms a step and packing "
+            f"{g['pack_unpack_ms_per_step_after_first']:.4f} ms (after the first; per step {per_step}); deterministic "
+            f"runs: stats against a plain run {nccl_diff}, two plain runs {run_to_run}; ops without a deterministic "
+            f"implementation {runs['plain_a']['nondeterministic_ops']}")
+        same_or_within("(a)", nccl_diff, run_to_run)
+    return rec
+
+
+def parallel_trainer(dev):
+    """(b)'s Trainer: configs/gans/dusty_v2.yaml at full width, global B=32."""
+    cfg = train_cfg("dusty_v2")
+    assert cfg["training"]["batch_size"] == PAR_B
+    return Trainer(cfg, device=dev, seed=7)
+
+
+def parallel_start(dev, path):
+    """(b)'s starting state, written to `path`: seeded weights, ADA's p at 0.5, two
+    one-process steps (iterations 0 and 1) so that Adam's moments are populated (a first
+    Adam step turns a gradient's last bits into its sign, as phase 9 notes)."""
+    from dusty_gan_v2_tpu_torch.training.checkpoint import state_payload
+
+    tr = parallel_trainer(dev)
+    st = tr.init_state(seed=3)
+    st.ada.p = torch.tensor(0.5, device=dev)
+    for it in (0, 1):
+        tr.step(st, train_batch(tr, 100 + it), it)
+    torch.save(state_payload(st), path)
+
+
+def parallel_steps(dev, start_path, iters, rank=0, world=1, ulp_up=False, save_dir=None):
+    """(b)'s steps `iters` from the state at `start_path` under deterministic algorithms,
+    each on this rank's rows, from the trainer's own generator. Returns per iteration the
+    metrics, D's outputs and the fakes D scored in the d phase (this rank's rows, on the
+    host), and the parameters before and after. With `save_dir`, the state before each
+    iteration after the first is written there (state_<it>.pt)."""
+    from dusty_gan_v2_tpu_torch.training.checkpoint import load_state_payload, state_payload
+
+    tr = parallel_trainer(dev)
+    st = load_state_payload(tr.init_state(seed=3), torch.load(start_path, map_location="cpu", weights_only=True))
+    if ulp_up:
+        with torch.no_grad():
+            for net in (st.G, st.D):
+                for prm in net.parameters():
+                    prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    params = lambda: {f"{n}.{k}": p.detach().float().cpu().clone()  # noqa: E731
+                      for n in ("G", "D") for k, p in getattr(st, n).named_parameters()}
+    start, n, out = params(), PAR_B // world, []
+    for i, it in enumerate(iters):
+        if save_dir is not None and i > 0:
+            torch.save(state_payload(st), Path(save_dir) / f"state_{it}.pt")
+        full = train_batch(tr, 100 + it)
+        batch = {k: v[rank * n:(rank + 1) * n] for k, v in full.items()}
+        seen, rec = [], {}
+
+        def on_phase(name, s, values):
+            if name == "d":
+                rec.update({k: v.detach().float().cpu() for k, v in values.items() if k != "loss"})
+                rec["fakes"] = seen[-1]  # the d phase scores the reals, then the fakes
+
+        hook = st.D.register_forward_pre_hook(lambda mod, args: seen.append(args[0].detach().float().cpu()))
+        try:
+            with deterministic():
+                m = tr.step(st, batch, it, on_phase=on_phase)
+        finally:
+            hook.remove()
+        rec["metrics"] = {k: float(v) for k, v in m.items()}
+        out.append(rec)
+    return out, start, params()
+
+
+def parallel_child(rank, port, out_dir):
+    """One of (b)'s two processes: PAR_ITERS from the start, the chief writing the state
+    before each iteration after the first."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.init_distributed(f"localhost:{port}", PAR_WORLD, rank, backend="gloo", device="cuda:0", timeout=300)
+    try:
+        t0 = time.perf_counter()
+        steps, start, end = parallel_steps(dev, Path(out_dir) / "start.pt", PAR_ITERS, rank, PAR_WORLD,
+                                           save_dir=out_dir if rank == 0 else None)
+        torch.save({"steps": steps, "start": start if rank == 0 else None, "end": end if rank == 0 else None,
+                    "s": time.perf_counter() - t0}, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def parallel_two_processes(dev):
+    """(b): two processes of this script on the card over gloo against one process. Each
+    iteration of the two processes is held against one process's step from the same state
+    (the state the two processes' earlier iterations made), as phase 9 holds one step:
+    a few steps on their own trajectories part far, through raydrop decisions that flip."""
+    import tempfile
+
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+    per_it = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as out_dir:
+        start_path = Path(out_dir) / "start.pt"
+        parallel_start(dev, start_path)
+        torch.cuda.empty_cache()  # the children share the card
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-child", str(r), str(port),
+                                   out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(PAR_WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=PAR_CHILD_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        children_s = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"(b) child {r} exited {p.returncode}: {o[-3000:]}"
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in range(PAR_WORLD)]
+        for i, it in enumerate(PAR_ITERS):
+            path = start_path if i == 0 else Path(out_dir) / f"state_{it}.pt"
+            (one,), start, end1 = parallel_steps(dev, path, (it,))
+            (ulp_run,), start_ulp, end_ulp = parallel_steps(dev, path, (it,), ulp_up=True)
+            if i == 0:
+                assert all(torch.equal(start[k], ranks[0]["start"][k]) for k in start), "the processes started elsewhere"
+            two = {k: torch.cat([r["steps"][i][k] for r in ranks]) for k in ("y_real", "y_fake", "fakes")}
+            m2 = ranks[0]["steps"][i]["metrics"]
+            assert all(r["steps"][i]["metrics"] == m2 for r in ranks), "the ranks' metrics differ"
+            flips = {"two": ((two["fakes"] - one["fakes"]).abs() > FLIP).flatten(1).sum(1),
+                     "one_ulp": ((ulp_run["fakes"] - one["fakes"]).abs() > FLIP).flatten(1).sum(1)}
+
+            def diff(m, y, n_flips):
+                d = {k: rel(m[k], one["metrics"][k]) for k in one["metrics"] if k.startswith("loss/")}
+                d["y_real"] = float((y["y_real"] - one["y_real"]).abs().max())
+                keep = n_flips == 0
+                keep = keep if keep.any() else torch.ones_like(keep)  # every fake flipped: all of them
+                d["y_fake"] = float((y["y_fake"] - one["y_fake"])[keep].abs().max())
+                return d
+
+            err, ulp_err = diff(m2, two, flips["two"]), diff(ulp_run["metrics"], ulp_run, flips["one_ulp"])
+            # R1's penalty is a sum of squared input gradients: phase 9 holds it to the gradients' bar
+            bar = {k: max(1e-2 if k == "loss/D/gradient_penalty" else 1e-4, 2 * ulp_err[k]) for k in err}
+            # phase 9's floor of MAX_FLIPS pixels is for 4 fakes: here it scales with the batch
+            flip_bar = max(MAX_FLIPS * PAR_B // 4, 2 * int(flips["one_ulp"].sum()))
+            n_fakes = int((flips["two"] > 0).sum())
+            rec = {"iteration": it, "err": err, "bar": bar, "one_ulp": ulp_err, "flips": flips["two"].tolist(),
+                   "one_ulp_flips": flips["one_ulp"].tolist(), "flip_bar": flip_bar, "metrics": m2,
+                   "one_process_metrics": one["metrics"]}
+            if i == len(PAR_ITERS) - 1:  # the last update, against one process's from the same state
+                keys = {n: [k for k in start if k.startswith(n + ".")] for n in ("G", "D")}
+                end2 = ranks[0]["end"]
+                rec["update_err"] = {n: update_err(end2, end1, start, ks) for n, ks in keys.items()}
+                rec["one_ulp_update_err"] = {n: update_err({k: end_ulp[k] - start_ulp[k] + start[k] for k in ks},
+                                                           end1, start, ks) for n, ks in keys.items()}
+            per_it.append(rec)
+            log("parallel", f"(b) iteration {it}: 2 x 16 (gloo) against 1 x 32 from the same state, losses "
+                f"(relative) and D outputs (abs) {err}, bars {bar} (1e-4 or twice one ulp's {ulp_err}); raydrop "
+                f"decisions taken the other way {int(flips['two'].sum())} on {n_fakes} fakes (bar {flip_bar} on "
+                f"{PAR_B // 2}; one ulp's {int(flips['one_ulp'].sum())}); update {rec.get('update_err')} of the "
+                f"largest (one ulp's {rec.get('one_ulp_update_err')}); metrics {m2}")
+            assert all(err[k] <= bar[k] for k in err), (it, err, bar)
+            assert int(flips["two"].sum()) <= flip_bar and 2 * n_fakes <= PAR_B, (it, flips)
+            torch.cuda.empty_cache()
+    last = per_it[-1]
+    log("parallel", f"(b) children {children_s:.1f} s (each: start, gloo rendezvous, "
+        f"{[round(r['s'], 2) for r in ranks]} s of {len(PAR_ITERS)} steps and the states written)")
+    assert all(last["update_err"][n] <= max(1e-3, 2 * last["one_ulp_update_err"][n]) for n in last["update_err"]), last
+    return {"iterations": per_it, "children_s": children_s, "children_steps_s": [r["s"] for r in ranks]}
+
+
+def parallel_semseg_cli(dev, semseg_rec):
+    """(c): train_semseg at world 1 under NCCL beside two runs without a process group (one
+    loader thread each, deterministic algorithms), then a 4-thread run for the rate."""
+    import tempfile
+
+    from dusty_gan_v2_tpu_torch.cli import train_semseg
+    from dusty_gan_v2_tpu_torch.semseg.train_step import SemsegTrainer
+    from dusty_gan_v2_tpu_torch.utils.config import save_config
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_semseg_par_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti_raw_frontal"
+        fabricate_semseg(root)
+        cfg = semseg_cfg(root)
+        cfg.training.max_steps = SEMSEG_PAR_STEPS
+        ck = cfg.training.checkpoint
+        ck.stats, ck.test = 4, SEMSEG_PAR_STEPS
+        B = int(cfg.training.batch_size)
+        assert (B, cfg.arch.compute_dtype, cfg.arch.use_crf, cfg.loss.name) == SEMSEG_CONFIG
+        save_config(cfg, str(tmp / "semseg.yaml"))
+        runs = {}
+        read_and_reset(CHAIN_COUNTERS)
+        for name, workers, dist in (("plain_a", 1, False), ("plain_b", 1, False), ("nccl", 1, True),
+                                    ("nccl_rate", 4, True)):
+            argv = ["--config", str(tmp / "semseg.yaml"), "--log_dir", str(tmp / name), "--num_workers", str(workers),
+                    "--device", str(dev)]
+            if dist:
+                argv += ["--distributed", "--coordinator", f"localhost:{free_port()}", "--num_processes", "1",
+                         "--process_id", "0"]
+            with contextlib.ExitStack() as stack:
+                window = stack.enter_context(StepWindow(*SEMSEG_PAR_WINDOW, cls=SemsegTrainer))
+                det = None if name == "nccl_rate" else stack.enter_context(deterministic())
+                t0 = time.perf_counter()
+                train_semseg.main(argv)
+                torch.cuda.synchronize()
+            n_win = SEMSEG_PAR_WINDOW[1] - SEMSEG_PAR_WINDOW[0] + 1
+            runs[name] = {"s": time.perf_counter() - t0, "rows": stats_rows(tmp / name / "stats.jsonl"),
+                          "window_imgs_per_s": 1e3 * B * n_win / window.ms, "nondeterministic_ops": det}
+        launches = read_and_reset(CHAIN_COUNTERS)
+        assert not mesh.bound() and not torch.distributed.is_initialized()
+        run_to_run = rows_diff(runs["plain_b"]["rows"], runs["plain_a"]["rows"])
+        nccl_diff = rows_diff(runs["nccl"]["rows"], runs["plain_a"]["rows"])
+        rec.update(runs=runs, run_to_run=run_to_run, nccl_diff=nccl_diff, launches=launches,
+                   phase11_cli_imgs_per_s=semseg_rec["cli_imgs_per_s"])
+        log("parallel", f"(c) train_semseg --distributed at world 1 (NCCL), bf16 B={B} + CRF, {SEMSEG_PAR_STEPS} steps: "
+            f"{runs['nccl']['s']:.2f} s with one loader thread; 4 threads: steps {SEMSEG_PAR_WINDOW[0]}-"
+            f"{SEMSEG_PAR_WINDOW[1]} {runs['nccl_rate']['window_imgs_per_s']:.1f} imgs/s (phase 11's window "
+            f"{SEMSEG_WINDOW[0]}-{SEMSEG_WINDOW[1]} without a group: {semseg_rec['cli_imgs_per_s']:.1f}); stats against "
+            f"a plain run {nccl_diff}, two plain runs {run_to_run} (one loader thread, deterministic algorithms; "
+            f"ops without one {runs['plain_a']['nondeterministic_ops']}); launches {launches}")
+        assert [r["step"] for r in runs["nccl"]["rows"]] == [4, 8, 8], runs["nccl"]["rows"]
+        same_or_within("(c)", nccl_diff, run_to_run)
+        assert not any(launches.values()), launches
+    return rec
+
+
+def phase_parallel(dev, smi, cli_rec, semseg_rec):
+    """Phase 14: (a) train_gan under NCCL at world 1, (b) two gloo processes on the card
+    against one, (c) train_semseg under NCCL at world 1."""
+    t0 = time.perf_counter()
+    rec = {"nvidia_smi": smi, "gan_cli": parallel_gan_cli(dev, cli_rec)}
+    rec["two_processes"] = parallel_two_processes(dev)
+    rec["semseg_cli"] = parallel_semseg_cli(dev, semseg_rec)
+    rec["s"] = time.perf_counter() - t0
+    log("parallel", f"phase 14: {rec['s']:.1f} s ({smi})")
+    return rec
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda:0")
@@ -2813,6 +3212,7 @@ def main():
     semseg_rec = phase_semseg(dev, smi)
     other_rec = phase_other_archs(dev, smi)
     inversion_rec = phase_inversion(dev, smi)
+    parallel_rec = phase_parallel(dev, smi, cli_rec, semseg_rec)
     # this slice's main path is demo_inversion at its defaults: K1 at each of its 1,001 G
     # forwards; K4 and K5 over train_gan's 16 iterations (8, a checkpoint, 8 resumed), K2 and
     # K3 in test_gan (phase 10), the paths that run them
@@ -2827,7 +3227,7 @@ def main():
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
-        "other_archs": other_rec, "inversion": inversion_rec,
+        "other_archs": other_rec, "inversion": inversion_rec, "parallel": parallel_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1))
@@ -2841,4 +3241,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-child":
+        sys.exit(parallel_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

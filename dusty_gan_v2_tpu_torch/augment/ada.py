@@ -10,9 +10,10 @@ constant up operator, and the W chain runs as constant matmuls around a fraction
 (`_warp_chain_mats`). Then the colour transform (4x4 homogeneous, projected onto one
 channel), the per-sample wavelet-band filter, additive noise and cutout.
 
-Every parameter draw comes from a stream of ops/../parallel/persample.py, in the JAX
-module's order (sample_affine, sample_color, filter, noise, cutout), so that a
-ReplayStream feeds both packages the same numbers. Everything is torch ops on the image,
+Every parameter draw comes from a stream of parallel/persample.py, in the JAX module's
+order (sample_affine, sample_color, filter, noise, cutout), so that a ReplayStream feeds
+both packages the same numbers; the trainer's stream gives each rank the rows of the
+global batch, so a sample's parameters do not depend on the number of processes. Everything is torch ops on the image,
 so the augmentation differentiates twice (R1 runs through it).
 """
 
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from ..ops.pad import pad_axis
 from ..ops.resample import upfirdn2d
 from ..ops.shift import fractional_wrap_lerp
+from ..parallel.mesh import psum_
 
 __all__ = ["AdaptiveAugment", "AdaState", "SYM2", "SYM6", "apply_imgfilter", "cutout_mask"]
 
@@ -215,11 +217,11 @@ class AdaptiveAugment:
     @staticmethod
     @torch.no_grad()
     def cumulate(state: AdaState, y_real: torch.Tensor) -> AdaState:
-        """Accumulate sign(D(real)) over the batch (on the device, no host sync)."""
-        s = torch.sign(y_real.detach().float()).sum()
-        return dataclasses.replace(
-            state, sign_cum=state.sign_cum + s, n_pred_cum=state.n_pred_cum + float(y_real.shape[0])
-        )
+        """Accumulate sign(D(real)) over the batch (on the device, no host sync); with a
+        process group bound, the sum and the count over every rank's batch (one psum)."""
+        y = y_real.detach().float()
+        sn = psum_(torch.stack([torch.sign(y).sum(), torch.tensor(float(y.shape[0]), device=y.device)]))
+        return dataclasses.replace(state, sign_cum=state.sign_cum + sn[0], n_pred_cum=state.n_pred_cum + sn[1])
 
     @torch.no_grad()
     def update_p(self, state: AdaState) -> Tuple[AdaState, torch.Tensor]:

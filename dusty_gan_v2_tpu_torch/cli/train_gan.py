@@ -1,7 +1,17 @@
 """Train a LiDAR range-image GAN on KITTI Raw (counterpart of train_gan.py).
 
     python -m dusty_gan_v2_tpu_torch.cli.train_gan --config configs/gans/dusty_v2_bf16.yaml \
-        [--resume <checkpoint>] [--log_dir DIR] [--dry_run] [--device cuda|cpu]
+        [--resume <checkpoint>] [--log_dir DIR] [--dry_run] [--device cuda|cpu] \
+        [--distributed [--coordinator HOST:PORT --num_processes N --process_id I]]
+
+Data parallel: one process per card, each started with --distributed and either the
+three rendezvous flags or torchrun's environment (torchrun --nproc_per_node N -m
+dusty_gan_v2_tpu_torch.cli.train_gan --distributed ...); NCCL on cards, gloo with
+--device cpu. The config's batch_size is the global batch: each rank loads its
+batch_size / N rows (rank k the k-th slice of each global batch of the one-process
+stream) and the step averages over the ranks, so N processes train as one does. Only
+the chief (rank 0) writes the config, stats, images and checkpoints and runs the
+validation; every rank loads a --resume checkpoint.
 
 Every shipped config trains: dusty_v2.yaml and dusty_v2_bf16.yaml (DUSty v2 G and D),
 dusty_v1.yaml (DUSty v1 G, vanilla D) and vanilla.yaml (vanilla G and D).
@@ -20,8 +30,8 @@ CLI's names; they go to stdout and to <log_dir>/stats.jsonl.
 Every draw is keyed by (seed, iteration): the step's by fold_seed(seed, iteration),
 the side samples' by fold_seed(seed, SIDE, 2i + 1) and (seed, SIDE, 2i), and a resumed
 run skips the sampler's indices of the iterations done, so that it trains on what the
-uninterrupted run would have. imgs/s counts the iterations of this run only.
-Not ported yet: the TensorBoard writer, --distributed and orbax checkpoints.
+uninterrupted run would have. imgs/s counts the global batch over the iterations of this
+run only. Not ported yet: the TensorBoard writer and orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from ..datasets.kitti import DevicePrefetcher, InfiniteSampler, KITTIRaw, Prefet
 from ..evaluation import features
 from ..geometry import CoordBridge, render_point_clouds
 from ..metrics import build_pointnet, compute_frechet_distance, compute_squared_mmd
-from ..parallel import PerSampleStream, fold_seed
+from ..parallel import PerSampleStream, fold_seed, init_distributed, rank, shutdown, world_size
 from ..training import Trainer, fetch_reals
 from ..training.checkpoint import load_checkpoint, save_checkpoint
 from ..utils import colorize, init_random_seed, points_to_normal_2d, power_spectrum_2d, resolve_device, tanh_to_sigmoid
@@ -129,6 +139,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace of steps 20-25 of this run into DIR")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--distributed", action="store_true",
+                        help="data parallel: join a process group (the three flags below, or torchrun's environment)")
+    parser.add_argument("--coordinator", default=None, help="HOST:PORT of the rendezvous")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     return parser.parse_args(argv)
 
 
@@ -139,13 +154,23 @@ def main(argv: Optional[List[str]] = None):
     if args.dry_run:
         print(json.dumps(cfg.to_dict(), indent=2, default=str))
         return None
-    device = resolve_device(args.device)
+    if args.distributed:
+        device = init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+        try:
+            return _train(args, cfg, device)
+        finally:
+            shutdown()
+    return _train(args, cfg, resolve_device(args.device))
+
+
+def _train(args: argparse.Namespace, cfg, device: torch.device):
     seed = int(cfg.training.random_seed)
-    init_random_seed(seed)
+    init_random_seed(seed)  # the same on every rank: the ranks start from one state
     trainer = Trainer(cfg, device=device, seed=seed)
-    B = trainer.batch_size
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}) | "
-          f"batch {B}", flush=True)
+    B, B_local, chief = trainer.batch_size, trainer.B_local, rank() == 0
+    if chief:
+        print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}) | "
+              f"batch {B} ({world_size()} x {B_local})", flush=True)
 
     if args.log_dir is None:
         stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
@@ -153,45 +178,52 @@ def main(argv: Optional[List[str]] = None):
         log_dir = Path("logs/gans") / cfg.dataset.name / arch / stamp
     else:
         log_dir = Path(args.log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, str(log_dir / "config.yaml"))
+    if chief:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, str(log_dir / "config.yaml"))
 
     state = trainer.init_state(seed)
     start_iter = 0
     if args.resume:
         _, state, _, num_imgs = load_checkpoint(args.resume, state)
         start_iter = num_imgs // B
-        print(f"resumed from {args.resume} at iteration {start_iter:,}", flush=True)
+        if chief:
+            print(f"resumed from {args.resume} at iteration {start_iter:,}", flush=True)
 
     ds = cfg.dataset
     dataset = KITTIRaw(
         root=ds.root, split="train", shape=trainer.resolution, min_depth=ds.min_depth, max_depth=ds.max_depth,
         flip=bool(ds.get("flip", False)), prune_missing=bool(ds.get("prune_missing", False)), cache=ds.get("cache"),
     )
-    # the same index stream as the uninterrupted run: a resumed run skips what it consumed
-    sampler = itertools.islice(iter(InfiniteSampler(len(dataset), seed=int(cfg.random_seed))), start_iter * B, None)
-    loader = iter(Prefetcher(dataset, B, sampler, num_workers=args.num_workers))
+    # the one-process index stream, rank k taking the k-th slice of each global batch; a
+    # resumed run skips what it consumed
+    sampler = itertools.islice(
+        iter(InfiniteSampler(len(dataset), rank=rank(), num_replicas=world_size(), seed=int(cfg.random_seed),
+                             block=B_local)),
+        start_iter * B_local, None)
+    loader = iter(Prefetcher(dataset, B_local, sampler, num_workers=args.num_workers))
     up_dtype = np.dtype(ds.get("upload_dtype", "float32"))
     dev_loader = DevicePrefetcher(
         loader, lambda host: {"depth": to_device(host["depth"].astype(up_dtype, copy=False), device)}, device, depth=2
     )
 
     pointnet = None
-    if args.pointnet_ckpt:
+    if args.pointnet_ckpt and chief:
         random_weights = args.pointnet_ckpt == "random"
         pointnet = build_pointnet(device, state_dict_path=None if random_weights else args.pointnet_ckpt)
     real_feats_cache: Dict = {}
     coord = CoordBridge(*trainer.resolution, trainer.min_depth, trainer.max_depth, angle=trainer.angle, device=device)
-    # the real frames' panels once, from the first frames the loader serves (read from the
-    # dataset again, so that the loader's stream is untouched)
-    first = itertools.islice(iter(InfiniteSampler(len(dataset), seed=int(cfg.random_seed))), start_iter * B,
-                             start_iter * B + 8)
-    frames = [dataset[int(j)] for j in first]
-    reals0 = fetch_reals({k: np.stack([f[k] for f in frames]) for k in ("depth", "mask")}, trainer.min_depth,
-                         trainer.max_depth, trainer.raydrop_const, device)
-    (log_dir / "images").mkdir(exist_ok=True)
-    np.savez_compressed(log_dir / "images" / f"step_{1:010d}.npz",
-                        **image_panels("real", coord, image=reals0["image"], raydrop_mask=reals0["raydrop_mask"]))
+    if chief:
+        # the real frames' panels once, from the first frames of the one-process stream
+        # (read from the dataset again, so that the loader's stream is untouched)
+        first = itertools.islice(iter(InfiniteSampler(len(dataset), seed=int(cfg.random_seed))), start_iter * B,
+                                 start_iter * B + 8)
+        frames = [dataset[int(j)] for j in first]
+        reals0 = fetch_reals({k: np.stack([f[k] for f in frames]) for k in ("depth", "mask")}, trainer.min_depth,
+                             trainer.max_depth, trainer.raydrop_const, device)
+        (log_dir / "images").mkdir(exist_ok=True)
+        np.savez_compressed(log_dir / "images" / f"step_{1:010d}.npz",
+                            **image_panels("real", coord, image=reals0["image"], raydrop_mask=reals0["raydrop_mask"]))
 
     total_iters = int(cfg.training.total_kimg * 1e3 / B)
     ckpt_cfg = cfg.training.checkpoint
@@ -201,13 +233,13 @@ def main(argv: Optional[List[str]] = None):
         device=device,
     )
     side = lambda *fold: torch.Generator(device=device).manual_seed(fold_seed(seed, SIDE, *fold))  # noqa: E731
-    stats_file = open(log_dir / "stats.jsonl", "a")
+    stats_file = open(log_dir / "stats.jsonl", "a") if chief else None
     prof = None
     pending = []
     t_start = time.time()
     try:
         for i in range(start_iter + 1, total_iters + 1):
-            if args.profile and i - start_iter == 20:
+            if args.profile and chief and i - start_iter == 20:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -225,13 +257,13 @@ def main(argv: Optional[List[str]] = None):
                 prof = None
             num_imgs = i * B
 
-            if i % int(ckpt_cfg.save_stats) == 0 or i == total_iters:
-                # one device -> host transfer for every metric since the last tick
+            if chief and (i % int(ckpt_cfg.save_stats) == 0 or i == total_iters):
+                # one device -> host transfer for every metric since the last tick (the
+                # metrics are the ranks' means: the chief alone writes them)
                 keys = [k for m in pending for k in m]
                 values = torch.stack([v.detach().float().reshape(()) for m in pending for v in m.values()]).tolist()
                 for k, v in zip(keys, values):
                     moving[k].append(v)
-                pending.clear()
                 ips = B * (i - start_iter) / (time.time() - t_start)
                 row = {"iteration": i, "num_imgs": num_imgs, "stats/imgs_per_sec": ips}
                 row.update({k: float(np.mean(dq)) for k, dq in moving.items()})
@@ -240,9 +272,12 @@ def main(argv: Optional[List[str]] = None):
                 print(f"iter {i:>8}/{total_iters} imgs {num_imgs:>10,} {ips:8.1f} imgs/s "
                       + " ".join(f"{k.split('/')[-1]}={np.mean(v):.3f}" for k, v in list(moving.items())[:4]),
                       flush=True)
+            if i % int(ckpt_cfg.save_stats) == 0 or i == total_iters:
+                pending.clear()
 
-            if i % int(ckpt_cfg.save_image) == 0:
-                # augmented reals at the current ADA p and G_ema's samples on the fixed z
+            if chief and i % int(ckpt_cfg.save_image) == 0:
+                # augmented reals at the current ADA p and G_ema's samples on the fixed z (eval
+                # mode and ADA: no collective, so the chief runs them alone)
                 reals_aug = trainer.augment_reals(
                     state, {"depth": batch["depth"][:8]}, i, stream=PerSampleStream(8, side(2 * i + 1), device)
                 )
@@ -266,9 +301,10 @@ def main(argv: Optional[List[str]] = None):
 
             if i % int(ckpt_cfg.save_model) == 0 or i == total_iters:
                 path = log_dir / "models" / f"checkpoint_{num_imgs:010d}.ckpt"
-                save_checkpoint(str(path), cfg, state, trainer.angle, num_imgs)
+                save_checkpoint(str(path), cfg, state, trainer.angle, num_imgs)  # the chief writes; all wait
     finally:
-        stats_file.close()
+        if stats_file is not None:
+            stats_file.close()
         loader.close()  # stops the loader's thread
         if prof is not None:
             prof.stop()

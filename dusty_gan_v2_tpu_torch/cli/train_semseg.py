@@ -3,7 +3,15 @@ train_semseg.py).
 
     python -m dusty_gan_v2_tpu_torch.cli.train_semseg \
         --config configs/semseg/sim2real_w_gan_noise_dustyv2_bf16.yaml \
-        [--log_dir DIR] [--dry_run] [--num_workers N] [--max_steps N] [--device cuda|cpu]
+        [--log_dir DIR] [--dry_run] [--num_workers N] [--max_steps N] [--device cuda|cpu] \
+        [--distributed [--coordinator HOST:PORT --num_processes N --process_id I]]
+
+Data parallel, as train_gan: one process per card (the JAX CLI drives one mesh of all
+its devices from one process), each with --distributed and the three rendezvous flags or
+torchrun's environment; the config's batch_size is the global batch, each rank loads the
+k-th slice of each global batch of the one-process stream, and the step averages over the
+ranks (SyncBatchNorm moments), so N processes train as one does. The chief (rank 0)
+alone validates and writes.
 
 The dataset follows the config's name, as in the JAX CLI: KITTI frontal frames, or GTA
 frames without ray drop, with the average KITTI drop map (spatial or its mean), or with
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..datasets.kitti import DevicePrefetcher, InfiniteSampler, Prefetcher, nearest_resize_hw, to_device
+from ..parallel import init_distributed, local_batch, rank, shutdown, world_size
 from ..semseg import (
     GTALiDAR, GTALiDAR_GAN, KITTIRawFrontal, SqueezeSegV1, SqueezeSegV2, apply_squeezenet_fire_weights,
     load_squeezenet_v11,
@@ -156,6 +165,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--distributed", action="store_true",
+                        help="data parallel: join a process group (the three flags below, or torchrun's environment)")
+    parser.add_argument("--coordinator", default=None, help="HOST:PORT of the rendezvous")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     return parser.parse_args(argv)
 
 
@@ -166,7 +180,17 @@ def main(argv: Optional[List[str]] = None) -> Optional[SemsegTrainer]:
     if args.dry_run:
         print(json.dumps(cfg.to_dict(), indent=2, default=str))
         return None
-    device = resolve_device(args.device)
+    if args.distributed:
+        device = init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+        try:
+            return _train(args, cfg, device)
+        finally:
+            shutdown()
+    return _train(args, cfg, resolve_device(args.device))
+
+
+def _train(args: argparse.Namespace, cfg, device: torch.device) -> SemsegTrainer:
+    chief = rank() == 0
     seed = int(cfg.random_seed)
     init_random_seed(seed)
     model = build_model(cfg)
@@ -174,29 +198,34 @@ def main(argv: Optional[List[str]] = None) -> Optional[SemsegTrainer]:
         try:
             weights = load_squeezenet_v11(cfg.arch.get("pretrained_path"))
         except FileNotFoundError as e:
-            print(f"WARNING: pretrained encoder init unavailable ({e}); the encoder starts from its "
-                  "truncated-normal init", flush=True)
+            if chief:
+                print(f"WARNING: pretrained encoder init unavailable ({e}); the encoder starts from its "
+                      "truncated-normal init", flush=True)
         else:
             apply_squeezenet_fire_weights(model, weights)
-            print("loaded ImageNet SqueezeNet-v1.1 Fire weights into the encoder", flush=True)
+            if chief:
+                print("loaded ImageNet SqueezeNet-v1.1 Fire weights into the encoder", flush=True)
     trainer = SemsegTrainer(model, cfg, device)
     B = int(cfg.training.batch_size)
+    B_local = local_batch(B)
     num_classes, modalities = trainer.num_classes, trainer.modalities
     steps_total = args.max_steps or int(cfg.training.max_steps)
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}) | "
-          f"batch {B} | {steps_total} steps", flush=True)
+    if chief:
+        print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}) | "
+              f"batch {B} ({world_size()} x {B_local}) | {steps_total} steps", flush=True)
 
     if args.log_dir is None:
         stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
         log_dir = Path("logs/semseg") / cfg.dataset.name / cfg.arch.name / stamp
     else:
         log_dir = Path(args.log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, str(log_dir / "training_config.yaml"))
+    if chief:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, str(log_dir / "training_config.yaml"))
 
     train_ds, val_ds = build_dataset(cfg)
-    sampler = InfiniteSampler(len(train_ds), seed=seed)
-    loader = iter(Prefetcher(train_ds, B, sampler, num_workers=args.num_workers))
+    sampler = InfiniteSampler(len(train_ds), rank=rank(), num_replicas=world_size(), seed=seed, block=B_local)
+    loader = iter(Prefetcher(train_ds, B_local, sampler, num_workers=args.num_workers))
     up_dtype = np.dtype(cfg.dataset.get("upload_dtype", "float32"))
 
     def assembled():
@@ -218,14 +247,16 @@ def main(argv: Optional[List[str]] = None) -> Optional[SemsegTrainer]:
     moving = deque(maxlen=100)
     conf = np.zeros((3, num_classes))
     pending = []
-    stats_file = open(log_dir / "stats.jsonl", "a")
+    stats_file = open(log_dir / "stats.jsonl", "a") if chief else None
     t0 = time.time()
     try:
         for step in range(1, steps_total + 1):
             out = trainer.step(next(dev_loader), step)
             pending.append(out)
 
-            if step % int(ckpt_cfg.stats) == 0 or step == steps_total:
+            if not chief:
+                pending.clear()  # the step's loss and counts are the ranks': the chief writes them
+            elif step % int(ckpt_cfg.stats) == 0 or step == steps_total:
                 # one device -> host transfer for every step since the last tick
                 losses = torch.stack([o["loss"].float() for o in pending]).cpu().numpy()
                 conf += torch.stack([o["conf"] for o in pending]).sum(0).cpu().numpy()
@@ -242,15 +273,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[SemsegTrainer]:
                 conf = np.zeros((3, num_classes))
 
             if step % int(ckpt_cfg.test) == 0 or step == steps_total:
-                iou = iou_of(validate(trainer.model, val_ds, modalities, B, num_classes, device, args.num_workers))
-                stats_file.write(json.dumps({"step": step, "val/iou/mean": float(iou[1:].mean()),
-                                             "val/iou": iou.tolist()}) + "\n")
-                stats_file.flush()
-                print(f"[val] step {step}: miou={iou[1:].mean():.4f} per-class={iou}", flush=True)
+                if chief:
+                    iou = iou_of(validate(trainer.model, val_ds, modalities, B, num_classes, device,
+                                          args.num_workers))
+                    stats_file.write(json.dumps({"step": step, "val/iou/mean": float(iou[1:].mean()),
+                                                 "val/iou": iou.tolist()}) + "\n")
+                    stats_file.flush()
+                    print(f"[val] step {step}: miou={iou[1:].mean():.4f} per-class={iou}", flush=True)
                 save_checkpoint(str(log_dir / "models" / f"checkpoint_step-{step:010d}.ckpt"), cfg, trainer.model,
-                                step)
+                                step)  # the chief writes; all wait
     finally:
-        stats_file.close()
+        if stats_file is not None:
+            stats_file.close()
         loader.close()  # stops the loader's thread
     return trainer
 

@@ -262,14 +262,21 @@ class KITTIRaw:
 
 class InfiniteSampler:
     """StyleGAN3-style infinite shuffled-window sampler with rank sharding
-    (reference gans/utils.py:238-271 semantics)."""
+    (reference gans/utils.py:238-271 semantics).
 
-    def __init__(self, dataset_size, rank=0, num_replicas=1, shuffle=True, seed=0, window_size=0.5):
+    Rank `rank` of `num_replicas` takes the positions of the one index stream whose
+    block (position // block) is rank modulo num_replicas. block = 1 interleaves the
+    ranks, as the reference does; block = the local batch gives rank k the k-th slice of
+    each global batch of the one-process stream, so that the ranks' batches concatenated
+    are the batch one process would load."""
+
+    def __init__(self, dataset_size, rank=0, num_replicas=1, shuffle=True, seed=0, window_size=0.5, block=1):
         if dataset_size <= 0:
             raise ValueError("the dataset is empty")
         self.size = int(dataset_size)
         self.rank = rank
         self.num_replicas = num_replicas
+        self.block = int(block)
         self.shuffle = shuffle
         self.seed = seed
         self.window_size = window_size
@@ -285,7 +292,7 @@ class InfiniteSampler:
         idx = 0
         while True:
             i = idx % order.size
-            if idx % self.num_replicas == self.rank:
+            if (idx // self.block) % self.num_replicas == self.rank:
                 yield int(order[i])
             if window >= 2:
                 j = (i - rnd.randint(window)) % order.size

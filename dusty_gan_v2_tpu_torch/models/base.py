@@ -15,6 +15,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..parallel.mesh import axis_pmean
+
 __all__ = ["GeneratorMixin", "reset_children"]
 
 
@@ -46,7 +48,7 @@ class GeneratorMixin:
             w = w[:, None, :].expand(-1, num_styles, -1)
         if train:
             with torch.no_grad():
-                batch_mean = w[:, 0].float().mean(dim=0, keepdim=True)
+                batch_mean = axis_pmean(w[:, 0].float().mean(dim=0, keepdim=True))
                 self.w_avg.copy_(self.w_avg + (1.0 - self.w_avg_decay) * (batch_mean - self.w_avg))
         elif truncation_psi != 1.0:
             w_avg = self.w_avg[None].to(w.dtype)

@@ -12,7 +12,8 @@ In train mode (`train=True`) the ema_var buffer first moves toward the mean squa
 the logical conv input, x_op(x) concatenated with x_shared (detached; `x_stat` gives
 x_op(x)'s sum of squares when the caller contracts before x_op), and the same forward
 then divides by the new sqrt(ema_var). The update is an in-place buffer write outside
-autograd.
+autograd; with a process group bound the statistic is the global batch's (the mean over
+the ranks, parallel/mesh.py), so every rank keeps one ema_var.
 
 Under a bfloat16 compute dtype the per-sample weights are cast to bfloat16 before
 each product, so the product runs in bfloat16 with float32 accumulation.
@@ -26,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import axis_pmean
 from .linear import EqualLRDense
 
 __all__ = ["ModConv2d"]
@@ -77,6 +79,7 @@ class ModConv2d(nn.Module):
             # the shared part's statistic is the base encoding's
             ss, n_sh, bs = x_shared.float().square().sum(), x_shared.numel(), x_shared.shape[0]
             var = ss / n_sh if sx is None else (sx + batch * ss / bs) / (nx + batch * n_sh / bs)
+        var = axis_pmean(var)  # the global batch's statistic (equal shares: the mean of the ranks')
         self.ema_var.copy_(self.ema_var + (1.0 - self.ema_decay) * (var - self.ema_var))
 
     def weights(

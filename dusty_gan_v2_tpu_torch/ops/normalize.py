@@ -1,9 +1,11 @@
 """Pixel normalization and minibatch standard deviation (counterpart of
-dusty_gan_v2_tpu/ops/normalize.py, single-device branch)."""
+dusty_gan_v2_tpu/ops/normalize.py)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import all_gather_rows, bound, rank
 
 __all__ = ["pixel_norm", "minibatch_stddev"]
 
@@ -25,7 +27,14 @@ def _stddev_feature(x: torch.Tensor, group: int, features: int, alpha: float) ->
 
 
 def minibatch_stddev(x: torch.Tensor, group: int = 4, features: int = 1, alpha: float = 1e-8) -> torch.Tensor:
-    """Append the per-group stddev statistic as `features` extra channels (NCHW)."""
+    """Append the per-group stddev statistic as `features` extra channels (NCHW).
+
+    With a process group bound the statistic is taken over the global batch (every
+    rank's rows, gathered in rank order) and each rank keeps its rows: the strided
+    groups span ranks, so the feature is a one-process run's on the same global batch."""
     B, C, H, W = x.shape
-    y = _stddev_feature(x, group, features, alpha)
+    if bound():
+        y = _stddev_feature(all_gather_rows(x), group, features, alpha)[rank() * B:(rank() + 1) * B]
+    else:
+        y = _stddev_feature(x, group, features, alpha)
     return torch.cat([x, y.to(x.dtype).expand(B, features, H, W)], dim=1)

@@ -11,6 +11,11 @@ Compute-dtype policy: parameters stay float32 (the master copy); each block cast
 weights to the activation's dtype, and BatchNorm reduces in at least float32 and casts
 back. `train` is an explicit argument, as in the JAX modules, not nn.Module.training.
 
+Under data parallelism (a process group bound, parallel/mesh.py) BatchNorm normalizes
+with the global batch's moments (SyncBatchNorm semantics: its two one-pass means reduced
+together in one collective) and the head's Dropout2d masks are the global batch's rows,
+so the forward is a one-process run's on the same global batch.
+
 Only the JAX package's default forms are ported: the "separable" max pool and one-pass
 BN moments. Its "reduce_window" / "shift" pools and two-pass moments are TPU-speed
 switches (`arch.pool_impl`, `arch.bn_one_pass`) that no shipped config sets; the model
@@ -25,6 +30,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import axis_pmean, bound, rank, world_size
+from ..parallel.persample import PerSampleStream
 
 __all__ = [
     "TorchConv2d",
@@ -139,9 +147,11 @@ class BatchNorm2d(nn.Module):
             m = x32.mean(dims)
             c = self.running_mean.to(x32.dtype, copy=True)
             ex2c = (x32 - c.reshape(shape)).square().mean(dims)
+            if bound():  # the global batch's moments: both means in one collective
+                m, ex2c = axis_pmean(torch.cat([m, ex2c])).split(m.shape[0])
             v = torch.maximum(ex2c - (m - c).square(), torch.zeros_like(ex2c))
             with torch.no_grad():
-                n = x.shape[0] * x.shape[2] * x.shape[3]
+                n = x.shape[0] * x.shape[2] * x.shape[3] * world_size()
                 unbiased = v * n / max(n - 1, 1)
                 mom = self.momentum
                 self.running_mean.copy_((1 - mom) * self.running_mean + mom * m)
@@ -204,8 +214,10 @@ class HeadConv(nn.Module):
     """Dropout2d (whole channels) + conv.
 
     In train mode the keep mask is `keep`, a (B, C, 1, 1) bool tensor, when given, else
-    drawn as uniform < 1 - p from `generator` (on x's device), batch-wide. The JAX package
-    keys each sample's mask by its global id; the two agree on injected masks only. With
+    drawn as uniform < 1 - p from `generator` (on x's device) for the global batch, of
+    which this rank keeps its rows (parallel/persample.py), so that a sample's mask does
+    not depend on the number of processes. The JAX package keys each sample's mask by its
+    global id with threefry bits; the two agree on injected masks only. With
     `bias_init_values` p the bias starts at -log((1 - p) / p) (the class-frequency prior)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, dropout_p: float = 0.5,
@@ -233,7 +245,8 @@ class HeadConv(nn.Module):
             if keep is None:
                 if generator is None:
                     raise ValueError("a train-mode HeadConv needs a keep mask or a generator")
-                keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator, device=x.device) < 1.0 - p
+                st = PerSampleStream(x.shape[0], generator, x.device, rank(), world_size())
+                keep = st.uniform((x.shape[1], 1, 1)) < 1.0 - p
             elif keep.shape != (x.shape[0], x.shape[1], 1, 1):
                 raise ValueError(f"keep mask {tuple(keep.shape)} for activations {tuple(x.shape)}")
             x = x * keep.to(x.dtype) / (1.0 - p)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import axis_pmean
+
 __all__ = ["focal_loss", "cross_entropy", "masked_seg_loss"]
 
 
@@ -45,9 +47,9 @@ def focal_loss(logit: torch.Tensor, label: torch.Tensor, gamma: float, alpha=Non
 
 
 def masked_seg_loss(per_pixel_loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sum(loss * mask) / sum(mask) over one process's batch.
+    """sum(loss * mask) over this rank's batch / the ranks' mean of sum(mask).
 
-    A data-parallel step must divide by the mask sum averaged over the ranks (the JAX
-    package's axis_pmean), so that the mean of the ranks' losses and gradients is the
-    global masked mean whatever the split; this one-process form is that with one rank."""
-    return (per_pixel_loss * mask).sum() / mask.sum()
+    Dividing by the mask sum averaged over the ranks (axis_pmean, as the JAX package
+    does) makes the mean of the ranks' losses and gradients the global masked mean
+    whatever the split; with no process group bound it is sum(loss * mask) / sum(mask)."""
+    return (per_pixel_loss * mask).sum() / axis_pmean(mask.sum())

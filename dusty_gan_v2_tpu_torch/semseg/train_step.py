@@ -1,7 +1,7 @@
 """One SqueezeSeg training step, and the semseg checkpoint.
 
 Counterpart of the step inside train_semseg.py (its `step_fn`, `loss_of`, optax chain
-and `confusion_device`), on one process: the model in train mode (BatchNorm updating
+and `confusion_device`): the model in train mode (BatchNorm updating
 its running statistics, Dropout2d in the head), the configured loss (focal or CE,
 class-weighted, masked mean, times cls_loss_coef), and the update of optax's chain
 
@@ -17,6 +17,13 @@ Schedules count 1-based steps: optax's update count is step - 1.
 The head's Dropout2d draws from a generator seeded with fold_seed(seed, step), so that a
 step's draws do not depend on the steps before it; `keep` injects the masks instead.
 
+Data parallel (a process group bound, parallel/mesh.py), each rank steps on its rows of
+the global batch as the JAX step does on its shard: BatchNorm takes the global moments,
+the masked loss divides by the ranks' mean mask sum, the gradients are averaged over the
+ranks before the clip, the running statistics are averaged after the forward, the loss
+is averaged and the confusion counts summed. Two processes on halves of a global batch
+take the one-process step.
+
 The checkpoint holds what the JAX CLI's msgpack holds: the config (as JSON text), the
 step, the parameters and the BatchNorm statistics (as {dotted name: tensor}); no
 optimizer state, so there is no resume, as in the JAX CLI.
@@ -30,7 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..parallel import fold_seed
+from ..parallel import fold_seed, is_chief
+from ..parallel.mesh import barrier, pmean_, pmean_flat_, psum_
 from ..utils.config import Config
 from .loss import cross_entropy, focal_loss, masked_seg_loss
 
@@ -92,13 +100,16 @@ class SemsegTrainer:
 
     def forward_backward(self, batch, step: int, keep: Optional[torch.Tensor] = None):
         """Train-mode forward (running statistics updated) and backward into each
-        parameter's .grad; returns (loss, logit), detached."""
+        parameter's .grad, both averaged over the ranks; returns (this rank's loss,
+        logit), detached."""
         inputs, xyz, mask, label = self.unpack(batch)
         gen = None if keep is not None else torch.Generator(self.device).manual_seed(fold_seed(self.seed, step))
         self.opt.zero_grad(set_to_none=True)
         logit = self.model(inputs, xyz, mask, train=True, keep=keep, generator=gen)
         loss = self.loss_of(logit, label, mask)
         loss.backward()
+        pmean_flat_([p.grad for p in self.params if p.grad is not None])
+        pmean_flat_([b for n, b in self.model.named_buffers() if n.endswith(("running_mean", "running_var"))])
         return loss.detach(), logit.detach()
 
     def clip_grads(self) -> torch.Tensor:
@@ -120,12 +131,13 @@ class SemsegTrainer:
 
     def step(self, batch, step: int, keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One training step; returns {"loss": 0-dim, "conf": (3, C) int64 [tp, fp, fn] of
-        the step's predictions on the masked pixels}, on the device."""
+        the step's predictions on the masked pixels}, on the device: the ranks' mean loss
+        and summed counts."""
         loss, logit = self.forward_backward(batch, step, keep)
         self.update(step)
         mask, label = batch["mask"].float(), batch["label"].long()
         conf = confusion_device((label * mask).long(), (logit.argmax(1) * mask).long(), self.num_classes)
-        return {"loss": loss, "conf": conf}
+        return {"loss": pmean_(loss.clone()), "conf": psum_(conf)}
 
 
 def _split_state(model: torch.nn.Module):
@@ -135,15 +147,18 @@ def _split_state(model: torch.nn.Module):
 
 
 def save_checkpoint(path: str, cfg, model: torch.nn.Module, step: int) -> None:
-    """One torch.save file, written atomically: {"cfg": JSON text, "step": int,
-    "params": {name: tensor}, "batch_stats": {name: tensor}} (tensors on the CPU)."""
-    params, stats = _split_state(model)
-    payload = {"cfg": json.dumps(cfg.to_dict() if isinstance(cfg, Config) else cfg), "step": int(step),
-               "params": params, "batch_stats": stats}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    """One torch.save file, written atomically by the chief (rank 0): {"cfg": JSON text,
+    "step": int, "params": {name: tensor}, "batch_stats": {name: tensor}} (tensors on the
+    CPU); then every rank of a bound process group waits at a barrier."""
+    if is_chief():
+        params, stats = _split_state(model)
+        payload = {"cfg": json.dumps(cfg.to_dict() if isinstance(cfg, Config) else cfg), "step": int(step),
+                   "params": params, "batch_stats": stats}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def load_checkpoint(path: str) -> Tuple[Config, Dict[str, Any]]:

@@ -11,7 +11,9 @@ One file written by torch.save, atomically (a temporary file, then os.replace):
 
 It holds only dicts, tensors (on the CPU), strs and ints, so torch.load(weights_only=True)
 reads it. Adam's hyperparameters are not stored: they follow from the config when the
-Trainer is built. Orbax directories (multi-host) wait for data parallelism.
+Trainer is built. Under data parallelism every rank holds the same state: the chief
+writes the file, then every rank passes a barrier, and every rank loads it. Orbax's
+sharded directories (the JAX CLI's --ckpt_backend orbax) are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..augment.ada import AdaState
+from ..parallel.mesh import barrier, is_chief
 from ..utils.config import Config
 from .train_state import TrainState
 
@@ -66,16 +69,20 @@ def load_state_payload(state: TrainState, payload: Dict[str, Any]) -> TrainState
 
 
 def save_checkpoint(path: str, cfg, state: TrainState, angle: torch.Tensor, num_imgs: int) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    payload = {
-        "cfg": json.dumps(cfg.to_dict() if isinstance(cfg, Config) else cfg),
-        "step": int(num_imgs),
-        "angle": angle.detach().cpu().clone(),
-        "state": state_payload(state),
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    """Write the file on the chief (rank 0); then every rank of a bound process group
+    waits at a barrier, so that none reads a checkpoint before it is whole."""
+    if is_chief():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        payload = {
+            "cfg": json.dumps(cfg.to_dict() if isinstance(cfg, Config) else cfg),
+            "step": int(num_imgs),
+            "angle": angle.detach().cpu().clone(),
+            "state": state_payload(state),
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def load_checkpoint(path: str, state_template: Optional[TrainState] = None) -> Tuple[Config, Any, torch.Tensor, int]:

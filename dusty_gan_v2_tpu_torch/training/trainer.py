@@ -32,8 +32,15 @@ follows its arch, as in the JAX step (dusty_v2: the azimuth shift with aug_coord
 logistic ray-drop noise and the Fourier-PE cache; dusty_v1: the noise; vanilla:
 nothing). A single-style generator's path lengths are (B, 1).
 
-Not ported: data parallelism (training/checkpoint.py and training/accumulation.py hold
-the checkpoint and gradient accumulation).
+Data parallelism (parallel/mesh.py): with a process group bound, the config's batch_size
+is the global batch and each rank steps on its B_local = batch_size / world rows. The
+step's draws are the global batch's rows (every rank draws them all and keeps its own),
+the models' statistics (ModConv's ema_var, w_avg, minibatch-stddev, ADA's sums) are the
+global batch's, each phase's gradients are averaged over the ranks in one flat
+collective before its Adam step, as the JAX step pmeans them, and so are PL's mean
+length and the returned metrics. Two processes on halves of a global batch take the
+step one process takes on all of it. training/checkpoint.py and
+training/accumulation.py hold the checkpoint and gradient accumulation.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..augment.ada import AdaptiveAugment
 from ..models import build_discriminator, build_generator, build_pe_cache
 from ..models.loss import gan_loss_d, gan_loss_g
 from ..ops.pad import filter2d
+from ..parallel.mesh import bound, local_batch, pmean_, pmean_grads_, rank, world_size
 from ..parallel.persample import PerSampleStream, fold_seed
 from ..utils import resolve_device, sigmoid_to_tanh
 from .train_state import TrainState
@@ -163,7 +171,8 @@ class Trainer:
     "model" sections of configs/gans/*.yaml (sampling.py::full_train_cfg). `angle` is the
     (1, 2, H, W) laser-angle grid (default: the dataset's LUT at the model's
     resolution); the step's draws come from the trainer's torch.Generator, seeded at
-    each step with fold_seed(seed, iteration)."""
+    each step with fold_seed(seed, iteration). `batch_size` is the config's, the global
+    batch; `B_local` is this rank's share of it."""
 
     def __init__(self, cfg: Dict[str, Any], device="cuda", angle: Optional[torch.Tensor] = None, seed: int = 0):
         self.cfg = cfg
@@ -270,13 +279,19 @@ class Trainer:
             self._pe_cache = (sig, build_pe_cache(state.G, self.angle))
         return self._pe_cache[1]
 
+    @property
+    def B_local(self) -> int:
+        """This rank's share of the batch (the batch with no process group bound)."""
+        return local_batch(self.batch_size)
+
     def stream(self, n: Optional[int] = None, *fold: int) -> PerSampleStream:
-        """A stream of draws for n samples (default: the batch) from the trainer's
-        generator; given `fold` ints, the generator is first seeded with
-        fold_seed(seed, *fold) (the step's stream: fold = (iteration,))."""
+        """A stream of draws for this rank's n samples (default: B_local) of a global
+        batch of n * world from the trainer's generator; given `fold` ints, the generator
+        is first seeded with fold_seed(seed, *fold) (the step's stream: fold =
+        (iteration,))."""
         if fold:
             self.generator.manual_seed(fold_seed(self.seed, *fold))
-        return PerSampleStream(n or self.batch_size, self.generator, self.device)
+        return PerSampleStream(n or self.B_local, self.generator, self.device, rank(), world_size())
 
     # ------------------------------------------------------------------ phases
     def _warmup(self, x, st, sched: Schedule):
@@ -319,18 +334,21 @@ class Trainer:
         for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
             p.grad = g
         _zero_fill_grads(state.G)
+        pmean_grads_(state.G.parameters())
         return loss.detach()
 
     def pl_phase(self, state: TrainState, st) -> torch.Tensor:
-        """The lazy path-length step before its optimizer, on B // 2 samples: styles w of
+        """The lazy path-length step before its optimizer, on B_local // 2 samples of each
+        rank (as the JAX step, not half the global batch): styles w of
         an eval-mode forward (no autograd), then a train-mode forward from w (its buffers
         update) and the path lengths |d sum(img * noise) / dw| over the style axis,
         noise ~ N(0, 1 / (H W)). pl_ema moves 0.01 of the way to their mean; the
         penalty mean((len - pl_ema)^2) is weighted by w_pl and differentiated through
-        the input gradient. Returns the penalty; G's gradients are in .grad and
-        state.pl_ema is the new baseline."""
+        the input gradient; the mean length and the gradients are averaged over the
+        ranks. Returns this rank's penalty; G's gradients are in .grad and state.pl_ema is
+        the new baseline."""
         G = state.G
-        sp = st.with_batch(max(self.batch_size // 2, 1))
+        sp = st.with_batch(max(self.B_local // 2, 1))
         pe_cache = self.pe_cache_for(state)
         z = sp.normal((self.z_dim,))
         with torch.no_grad():
@@ -340,12 +358,13 @@ class Trainer:
         img = G(w, None, pe_cache=pe_cache, train=True, input_w=True, **self._g_draws(G, sp, True))["image"]
         (gw,) = torch.autograd.grad((img * noise).sum(), w, create_graph=True)
         lengths = gw.square().sum(dim=-1).sqrt()
-        pl_ema = state.pl_ema + 0.01 * (lengths.mean().detach() - state.pl_ema)
+        pl_ema = state.pl_ema + 0.01 * (pmean_(lengths.mean().detach().clone()) - state.pl_ema)
         penalty = (lengths - pl_ema).square().mean()
         params = [p for p in G.parameters() if p.requires_grad]
         for p, g in zip(params, torch.autograd.grad(self.w_pl * penalty, params, allow_unused=True)):
             p.grad = g
         _zero_fill_grads(G)
+        pmean_grads_(G.parameters())
         state.pl_ema = pl_ema
         return penalty.detach()
 
@@ -356,7 +375,7 @@ class Trainer:
         B = x_real.shape[0]
         with torch.no_grad():
             x_fake = self._fake(state, st)
-            st2 = st.with_batch(2 * B)
+            st2 = st.with_batch(2 * B, parts=2)  # reals and fakes keep ids of their own
             xcat = self.ada(self._warmup(torch.cat([x_real, x_fake]), st2, sched), state.ada.p, st2)
         D = state.D
         D.zero_grad(set_to_none=True)
@@ -365,6 +384,7 @@ class Trainer:
         loss = self.w_gan * gan_loss_d(y_real, y_fake, self.gan_objective)
         loss.backward()
         _zero_fill_grads(D)
+        pmean_grads_(D.parameters())
         return loss.detach(), y_real.detach(), y_fake.detach()
 
     def r1_phase(self, state: TrainState, x_real: torch.Tensor, st, sched: Schedule) -> torch.Tensor:
@@ -376,6 +396,7 @@ class Trainer:
         penalty = r1_penalty(D, x_real, lambda x: self.ada(self._warmup(x, st, sched), p, st))
         ((self.w_gp / 2.0) * penalty).backward()
         _zero_fill_grads(D)
+        pmean_grads_(D.parameters())
         return penalty.detach()
 
     @torch.no_grad()
@@ -399,19 +420,22 @@ class Trainer:
         self, state: TrainState, batch: Dict[str, Any], iteration: int, draws=None,
         on_phase: Optional[Callable[[str, TrainState, Dict[str, torch.Tensor]], None]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """One training iteration, in place on `state`; returns the metrics as 0-dim
-        tensors on the device (no host synchronization). `draws` replaces the trainer's
-        generator as the source of every random draw (a parallel.ReplayStream on the
-        trainer's device). `on_phase(name, state, values)` is called after each of the
+        """One training iteration on this rank's B_local rows of the global batch, in place
+        on `state`; returns the metrics (averaged over the ranks) as 0-dim tensors on the
+        device (no host synchronization). `draws` replaces the trainer's generator as the
+        source of every random draw (a parallel.ReplayStream of global arrays on the
+        trainer's device, with this rank's rank and world). `on_phase(name, state, values)` is called after each of the
         "g", "pl", "d" and "r1" phases, with its gradients in .grad, before the optimizer
         steps; values holds the phase's loss (and D's outputs, or the penalty and
         pl_ema)."""
         hook = on_phase or (lambda name, st, values: None)
         sched = self.schedule(iteration)
-        st = (self.stream(None, iteration) if draws is None else draws).with_batch(self.batch_size)
+        B = self.B_local
+        st = (self.stream(None, iteration) if draws is None else draws).with_batch(B)
         x_real = fetch_reals(batch, self.min_depth, self.max_depth, self.raydrop_const, self.device)["image"]
-        if x_real.shape[0] != self.batch_size:
-            raise ValueError(f"batch of {x_real.shape[0]}, the config's batch_size is {self.batch_size}")
+        if x_real.shape[0] != B:
+            raise ValueError(f"batch of {x_real.shape[0]}, this rank's share of the config's batch_size "
+                             f"{self.batch_size} is {B}")
         m = {}
         loss_G = self.g_phase(state, x_real, st, sched)
         hook("g", state, {"loss": loss_G})
@@ -444,6 +468,9 @@ class Trainer:
             m["stats/ada_rt"] = rt
         m["stats/ada_p"] = state.ada.p
         state.step += 1
+        if bound():  # one collective for every metric
+            vals = pmean_(torch.stack([v.float().reshape(()) for v in m.values()]))
+            m = dict(zip(m, vals.unbind()))
         return m
 
     def augment_reals(self, state: TrainState, batch: Dict[str, Any], iteration: int, stream=None) -> torch.Tensor:
@@ -451,7 +478,8 @@ class Trainer:
         x = fetch_reals(batch, self.min_depth, self.max_depth, self.raydrop_const, self.device)["image"]
         blur_sigma, dropout_ratio = self.warmup_params(iteration)
         kernel = make_blur_kernel(blur_sigma, self.blur_init_sigma)
-        st = (self.stream(x.shape[0]) if stream is None else stream).with_batch(x.shape[0])
+        st = (PerSampleStream(x.shape[0], self.generator, self.device) if stream is None else stream
+              ).with_batch(x.shape[0])
         with torch.no_grad():
             return self.ada(warmup_fn(x, st, dropout_ratio, self.raydrop_const, kernel), state.ada.p, st)
 
