@@ -49,14 +49,14 @@
    1,000,000, 1,000,004 and 1,000,003, bench.py's steady step) and the launch counters
    show K1, K4 and K5 on it (39 / 36 / 12 a step, 46 / 60 / 20 with R1). One fp32 B=4
    step (R1 + ADA + warmup) from a state whose Adam moments are populated runs on the
-   card and on the CPU on the same replayed draws, each on its own trajectory: the
-   losses and D outputs within 1e-4 (PL's penalty and pl_ema 1e-3), or twice the shift
-   one ulp in the weights causes on the CPU where that is larger; D's outputs on fakes
-   over the samples with no raydrop decision taken the other way (the straight-through
-   Gumbel mask is a hard threshold: a pixel whose logit plus noise sits within rounding
-   of it can flip after G's update), at most 4 such pixels (or twice as many as one ulp
-   flips) on at most half the fakes; a CPU run fed the card's gradients (each phase on
-   the state the card's earlier phases made) within 1e-4, PL's values too; R1's penalty
+   card and on the CPU on the same replayed draws, each on its own trajectory, the
+   card's discrete decisions replayed on the CPU (DecisionTape: the straight-through
+   Gumbel mask's hard threshold and the leaky ReLUs' signs at the K1 / K4 sites, where a
+   value within rounding of the threshold would send two correct runs down two
+   branches): the losses and D outputs within 1e-4 (PL's penalty and pl_ema 1e-3), or
+   twice the shift one ulp in the weights causes on the CPU where that is larger; a CPU
+   run fed the card's gradients (each phase on the state the card's earlier phases
+   made) within 1e-4, PL's values too; R1's penalty
    and each phase's gradients before the optimizer within 1e-2 of their largest
    magnitude, or within twice the one-ulp shift where that is larger; G's buffers and
    the ADA state 1e-4; on the card, G's update is
@@ -94,8 +94,8 @@
    to the trained state, a second (profiled) run gives the idle share, and test_semseg
    evaluates the checkpoint without and with --knn, twice in turns: every score finite
    and in --out. This
-   path launches none of K1-K5 (the counters read 0 after it). Then: one fp32 B=4 step at
-   64 x 512 on the card and on the CPU on injected dropout masks (loss, logits and running
+   path launches none of K1-K5 (the counters read 0 after it). Then: one float64 B=4 step
+   at 64 x 512 on the card and on the CPU on injected dropout masks (loss, logits and running
    statistics 1e-4, gradients 1e-2 of their largest magnitude, or twice the shift one ulp
    in the weights makes on the CPU where larger), two card updates against the SGD
    chain's formula on the card's gradients (1e-6), kNN labels equal on the card and the
@@ -106,8 +106,8 @@
    (vanilla G + vanilla D) at full width (ch_base 64, ch_max 512, 64 x 512, z 512, f32,
    TF32 off), read with sampling.train_cfg. For each: the G (seeded, non-zero biases and
    w_avg) samples B=8 at psi 0.7 on the card and on the CPU on the same z and logistic
-   noise (image_orig / image and raydrop_logit within 1e-4; DUSty v1's drop-mask flips at
-   most 4, or twice the one-ulp run's), the D scores the CPU's images on both (logits
+   noise, the card's decisions replayed (image, image_orig and raydrop_logit within
+   1e-4), the D scores the CPU's images on both (logits
    1e-4); K1 launches 4 per G forward and 4 per D forward; samples/s at B=32 and 128; one
    fp32 B=4 step card against CPU on replayed draws with phase 9's bars; bare Trainer
    steps at the config's B=32 (iteration 0 with R1: K1 24, then 20 a step) and their rates.
@@ -134,8 +134,9 @@
    against the CPU's normal_map of the card's points past 1e-4 on at most 1e-3 of the
    pixels, or twice the share one ulp in the points moves on the CPU: closest-pair
    near-ties and nearly collinear neighbours), then 2 x 30 frames for the rate; the
-   bird's-eye view of quick_demo's images on the card against the CPU (lit pixels past
-   1e-4 held to the same kind of bar: the card's scatter adds in no fixed order); the
+   bird's-eye view of quick_demo's images on the card against the CPU in float64 (lit
+   pixels past 1e-4 held to the same kind of bar: the card's scatter adds in no fixed
+   order); the
    image tick's panels timed. Phase 10's train_gan runs now write an image tick at iterations 8 and 16
    (one G forward more each, K1 9) with the panels under the JAX CLI's tags.
 14. parallel: data parallelism (parallel/mesh.py). (a) train_gan --distributed --coordinator
@@ -157,11 +158,10 @@
    processes' earlier iterations made; on their own trajectories two runs part within two
    steps, through raydrop decisions that flip): the losses and D's outputs within 1e-4
    (the R1 penalty within 1e-2, phase 9's gradient bar), or twice what one ulp in every
-   weight moves them in the one-process run on the card where that is larger; the fakes with a raydrop
-   decision taken the other way are set aside and counted, as phase 9 does (at most
-   phase 9's 4 pixels per 4 fakes or twice the one-ulp run's, on at most half the fakes;
-   where every fake of a run has a flip, its D outputs on fakes are compared over all);
-   the last update within 1e-3 of its largest or twice the one-ulp run's; both children
+   weight moves them in the one-process run on the card where that is larger, the two
+   processes' discrete decisions replayed in the one-process runs (joined along the
+   batch, as phase 9 replays the card's on the CPU); the last update within 1e-3 of its
+   largest or twice the one-ulp run's; both children
    must exit 0. (c) train_semseg --distributed at world 1 under NCCL, 8 steps of
    configs/semseg/sim2real_w_gan_noise_dustyv2_bf16.yaml at B=120 on phase 11's kind of
    tree, held to two plain runs by (a)'s rule (deterministic algorithms and one loader
@@ -169,9 +169,30 @@
    loader threads gives the imgs/s over steps 5-8 beside phase 11's; the path launches
    none of K1-K5.
 
-Any failed phase raises, so the exit code is non-zero and the last line is not
-printed. A JSON record of every number goes to chiprun_out/chip_smoke.json. The
-last lines are the kernels record and {"ok": true, "device": {...}}.
+15. interop: the JAX package's and the reference implementation's checkpoints, and noise
+   injection. (a) configs/gans/dusty_v2_bf16.yaml at B=128 after two iterations is written
+   in the JAX CLI's msgpack format (training/checkpoint.py::save_jax_checkpoint) and in
+   the port's; each reads back bit-equal, without and with a template (Adam's moments,
+   ADA, the PL baseline), and train_gan --resume from each runs iterations 3-6 under
+   deterministic algorithms to equal stats rows and equal final states (K1 / K4 / K5
+   156 / 144 / 48). (b) configs/gans/dusty_v2.yaml's G with noise injection and its D,
+   and a SqueezeSegV2, written as reference-layout `.pth` files
+   (convert/torch_weights.py::reference_state_dict), load bit-equal through
+   pretrained.autoload_ckpt and test_semseg's loader; test_gan evaluates the G over
+   jsd and 1nna-emd at 64 + 64 clouds (K1 9, K2 2, K3 48). (c) That G at fp32 B=8 with
+   fixed noise maps on the card against the CPU (1e-4, decisions replayed), phase 9's
+   fp32 B=4 card-vs-CPU step with noise injection without and with PL, and sampling
+   fp32 B=128 with the maps drawn per sample against the same G without noise.
+
+Phases 11 and 13 hold the semseg step and the bird's-eye view card against CPU in
+float64: in float32 two correct runs part there by rounding amplified through ReLU
+masks, max-pool choices, small-variance BatchNorm and nearest-neighbour ties, as far as
+one ulp in the input moves them, so a float32 gate at those bars decided by chance.
+
+A failing phase prints "chip_smoke: FAILED in <phase>: <error>" on stdout and raises, so
+the exit code is non-zero and the last line is not printed. A JSON record of every
+number goes to chiprun_out/chip_smoke.json. The last lines are the kernels record and
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -199,11 +220,15 @@ from dusty_gan_v2_tpu_torch.metrics import (
 )
 from dusty_gan_v2_tpu_torch.metrics.cov_mmd_1nna import _compute_cov_mmd, _compute_nna, _pairwise_distance
 from dusty_gan_v2_tpu_torch.metrics.fps import _fit_cluster
-from dusty_gan_v2_tpu_torch.models import build_discriminator, build_generator
+from dusty_gan_v2_tpu_torch.models import build_discriminator, build_generator, build_pe_cache
+from dusty_gan_v2_tpu_torch.models import dusty_v1 as dusty_v1_mod
+from dusty_gan_v2_tpu_torch.models import dusty_v2 as dusty_v2_mod
+from dusty_gan_v2_tpu_torch.ops import act as act_mod
+from dusty_gan_v2_tpu_torch.ops.act import SQRT2
 from dusty_gan_v2_tpu_torch.ops import (
     fused_act_resample, fused_act_resample_bwd_plain, fused_act_resample_plain, fused_bias_act, fused_bias_act_cuda,
-    fused_chain_bwd_cuda, fused_chain_fwd_cuda, fused_leaky_relu, fused_resample_plain, make_resample, resample,
-    sample_logistic,
+    fused_chain_bwd_cuda, fused_chain_fwd_cuda, fused_leaky_relu, fused_resample, fused_resample_plain, make_resample,
+    resample, sample_logistic,
 )
 from dusty_gan_v2_tpu_torch.ops.fused_chain import chain_operators, operators_from_dense
 from dusty_gan_v2_tpu_torch.sampling import (
@@ -1323,6 +1348,133 @@ class RecordingStream(PerSampleStream):
         return self._keep(torch.log(u) - torch.log1p(-u))
 
 
+def _pack_bits(mask: torch.Tensor):
+    """A bool tensor as (shape, uint8 bit-packed on the host): the packing runs where the
+    mask is."""
+    flat = mask.reshape(-1).to(torch.uint8)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 8)])
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=flat.device)
+    return tuple(mask.shape), (flat.view(-1, 8) * weights).sum(1).to(torch.uint8).cpu()
+
+
+def _unpack_bits(shape, packed: torch.Tensor, device) -> torch.Tensor:
+    n = math.prod(shape)
+    bits = (packed.to(device)[:, None] >> torch.arange(8, device=device, dtype=torch.uint8)) & 1
+    return bits.reshape(-1)[:n].bool().reshape(shape)
+
+
+class DecisionTape:
+    """The discrete decisions of the card's run of a step, replayed in the runs it is
+    compared with: the hard ray-drop mask of the straight-through Gumbel threshold
+    (models/dusty_v1.py's gumbel_sigmoid, which every measurement model calls) and the
+    sign of x + bias at every leaky ReLU of the fused bias-act and act -> resample sites
+    (ops/act.py::fused_bias_act, models/dusty_v2.py's fused_act_resample; K1, K4 and K5
+    decide by that sign in float32, as the plain versions do). `record()` patches those
+    names for the card's run, which keeps each decision on the host and runs the program
+    unchanged; `replay()` patches them for a run on the CPU (or another run on the card),
+    which takes the plain versions' arithmetic with the recorded decisions in place of its
+    own and counts where its own would have differed. Two runs compared so part by
+    rounding only: a pixel within rounding of a threshold cannot send them down two
+    branches, and their differences are held at continuous bars. Decisions recorded in
+    several processes join along the batch (`concat`)."""
+
+    KINDS = ("raydrop", "leaky_relu")
+
+    def __init__(self, tape=None):
+        self.tape = [] if tape is None else tape
+        self.pos, self.differ = 0, dict.fromkeys(self.KINDS, 0)
+
+    @staticmethod
+    def concat(tapes, device="cpu"):
+        """One tape of the processes' tapes (rank order): each decision's rows joined (on
+        `device`)."""
+        assert len({len(t.tape) for t in tapes}) == 1, [len(t.tape) for t in tapes]
+        out = []
+        for entries in zip(*(t.tape for t in tapes)):
+            assert len({e[0] for e in entries}) == 1, [e[0] for e in entries]
+            mask = torch.cat([_unpack_bits(e[1], e[2], device) for e in entries])
+            out.append((entries[0][0], *_pack_bits(mask)))
+        return DecisionTape(out)
+
+    def _push(self, kind, mask):
+        self.tape.append((kind, *_pack_bits(mask)))
+
+    def _pop(self, kind, own: torch.Tensor) -> torch.Tensor:
+        if self.pos >= len(self.tape):
+            raise AssertionError(f"decision tape exhausted: a {kind} decision of {tuple(own.shape)} has no entry")
+        k, shape, packed = self.tape[self.pos]
+        if k != kind or shape != tuple(own.shape):
+            raise AssertionError(f"decision tape entry {self.pos}: {k} {shape}, the run asks for {kind} "
+                                 f"{tuple(own.shape)}")
+        self.pos += 1
+        mask = _unpack_bits(shape, packed, own.device)
+        self.differ[kind] += int((mask != own).sum())
+        return mask
+
+    @staticmethod
+    def _pre(x, bias):
+        """x + bias in the plain versions' float32 (float64 stays), bias over axis 1."""
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return x.to(acc) + bias.to(x.dtype).reshape((1, -1) + (1,) * (x.ndim - 2)).to(acc)
+
+    def _act(self, x, bias, negative_slope, scale):
+        pre = self._pre(x, bias)
+        mask = self._pop("leaky_relu", pre.detach() >= 0)
+        return (torch.where(mask, pre, pre * negative_slope) * scale).to(x.dtype)
+
+    @contextlib.contextmanager
+    def _patched(self, gumbel, act, act_resample):
+        targets = [(dusty_v1_mod, "gumbel_sigmoid", gumbel), (act_mod, "fused_bias_act", act),
+                   (dusty_v2_mod, "fused_act_resample", act_resample)]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
+        try:
+            for m, n, f in targets:
+                setattr(m, n, f)
+            yield self
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    def record(self):
+        gumbel, act, act_resample = dusty_v1_mod.gumbel_sigmoid, act_mod.fused_bias_act, dusty_v2_mod.fused_act_resample
+
+        def rec_gumbel(logits, noise, temperature=1.0, straight_through=True):
+            with torch.no_grad():
+                self._push("raydrop", torch.sigmoid((logits + noise) / temperature) > 0.5)
+            return gumbel(logits, noise, temperature, straight_through)
+
+        def rec_act(x, bias, negative_slope=0.2, scale=SQRT2):
+            with torch.no_grad():
+                self._push("leaky_relu", self._pre(x, bias) >= 0)
+            return act(x, bias, negative_slope, scale)
+
+        def rec_act_resample(x, bias, plan, negative_slope=0.2, scale=SQRT2):
+            with torch.no_grad():
+                self._push("leaky_relu", self._pre(x, bias) >= 0)
+            return act_resample(x, bias, plan, negative_slope, scale)
+
+        return self._patched(rec_gumbel, rec_act, rec_act_resample)
+
+    def replay(self):
+        self.pos, self.differ = 0, dict.fromkeys(self.KINDS, 0)
+
+        def rep_gumbel(logits, noise, temperature=1.0, straight_through=True):
+            soft = torch.sigmoid((logits + noise) / temperature)
+            hard = self._pop("raydrop", soft.detach() > 0.5).to(soft.dtype)
+            return soft + (hard - soft).detach()
+
+        def rep_act(x, bias, negative_slope=0.2, scale=SQRT2):
+            return self._act(x, bias, negative_slope, scale)
+
+        def rep_act_resample(x, bias, plan, negative_slope=0.2, scale=SQRT2):
+            return fused_resample(self._act(x, bias, negative_slope, scale), plan)
+
+        return self._patched(rep_gumbel, rep_act, rep_act_resample)
+
+    def check_used(self):
+        assert self.pos == len(self.tape), f"the run took {self.pos} of {len(self.tape)} recorded decisions"
+
+
 def train_batch(tr, seed):
     """Synthetic depth (m) + mask for tr's batch, as bench.py::_gan_train_rate feeds the step."""
     rng = np.random.RandomState(seed)
@@ -1412,36 +1564,48 @@ def update_err(new, ref, old, keys):
     return worst
 
 
-FLIP = 1e-2  # a pixel of D's input this far from the CPU's: a raydrop decision taken the other way
-MAX_FLIPS = 4  # such pixels allowed in a B=4 step's fakes (131,072 pixels), or twice the one-ulp run's
 # PL's penalty and baseline on each run's own trajectory: squared deviations of path lengths
 # that G takes after an Adam step on a gradient the card matches to ~3.5e-3 of its largest
 # (bar 1e-2) at iteration 36; with the CPU fed the card's gradients they are held at 1e-4
 PL_VALUES, PL_BAR = ("loss/G/path_length", "loss/G/path_length/baseline"), 1e-3
 
 
-def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
+def seed_noise_weights(G, seed):
+    """Noise-injection weights N(0, 0.1^2) from `seed` (a trained G's are far from the
+    init's zeros), drawn on the CPU so that every device gets the same."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, prm in G.named_parameters():
+            if ".noise" in k:
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1)
+
+
+def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_noise=False):
     """One fp32 B=4 step on the card and on the CPU from the same state (two steps old, so
     Adam's moments are populated) on the same draws: at iteration 32 R1 + ADA + warmup;
-    with `pl` > 0 (lazy pl 4) iteration 36 takes PL + ADA + warmup.
+    with `pl` > 0 (lazy pl 4) iteration 36 takes PL + ADA + warmup. With `use_noise` the
+    generator injects noise (its weights seeded non-zero), drawn in the step's draws.
 
-    Each run keeps its own trajectory. Fakes carry a hard raydrop mask (the straight-through
-    Gumbel-sigmoid's forward thresholds logit + noise), so after G's update a pixel whose
-    logit plus noise sits within rounding of the threshold can be dropped on one side and
-    kept on the other, and D's output on that fake moves by far more than rounding. So D's
-    outputs on fakes are compared on the samples whose fake has no such pixel (at least
-    half of them), and the pixels are counted (at most MAX_FLIPS, or twice as many as one
-    ulp in the weights flips on the CPU). Values are held at 1e-4 (PL's at PL_BAR), or
-    twice the shift one ulp in the weights makes on the CPU where that is larger. A CPU
-    run that takes the card's gradients into its optimizer steps holds each phase on the
-    state the card's earlier phases made, every value at 1e-4. `config` names the float32
-    configs/gans/*.yaml (B=32, lazy gp 16, ada 4 in each)."""
+    Each run keeps its own trajectory. The card's discrete decisions (the hard ray-drop
+    masks of the straight-through Gumbel threshold, the leaky ReLUs' signs at the K1 / K4
+    sites) are recorded and replayed in the CPU runs (DecisionTape), so the runs part by
+    rounding only and every value is held at a continuous bar: losses and D outputs at
+    1e-4 (PL's at PL_BAR), or twice the shift one ulp in the weights makes on the CPU
+    where that is larger. A CPU run that takes the card's gradients into its optimizer
+    steps holds each phase on the state the card's earlier phases made, every value at
+    1e-4. `config` names the float32 configs/gans/*.yaml (B=32, lazy gp 16, ada 4 in
+    each)."""
     cfg = train_cfg(config)
     cfg["training"]["batch_size"] = 4
     cfg["training"]["loss"]["pl"] = pl
+    if use_noise:
+        cfg["model"]["generator"]["synthesis_kwargs"]["use_noise"] = True
     # it 32: R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations); 36: PL (every 4), no R1
     tr = Trainer(cfg, device=dev, seed=7)
     st = tr.init_state(seed=3)
+    if use_noise:
+        for G in (st.G, st.G_ema):
+            seed_noise_weights(G, 11)
     batch = train_batch(tr, 1)
     for pre in (it - 2, it - 1):
         tr.step(st, batch, pre)
@@ -1467,7 +1631,7 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
             adam_errs.append(adam_formula_err(s.opt_G, s.G, g_before[0], now))
             g_before[0] = now
 
-    runs, fakes = {}, {}
+    runs, fakes, tape, differ = {}, {}, DecisionTape(), {}
 
     def run(name, t, s, b, d, edit=None):
         phases, seen, marks = {}, [], {}
@@ -1480,10 +1644,14 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
         hook = s.D.register_forward_pre_hook(lambda mod, args: seen.append(args[0].detach().float().cpu()))
         rs = ReplayStream(draws, device=d)
         try:
-            metrics = t.step(s, b, it, draws=rs, on_phase=phase_recorder(phases, mark))
+            with tape.record() if name == "card" else tape.replay():
+                metrics = t.step(s, b, it, draws=rs, on_phase=phase_recorder(phases, mark))
         finally:
             hook.remove()
         assert rs.remaining == 0, name
+        if name != "card":
+            tape.check_used()
+            differ[name] = dict(tape.differ)
         runs[name] = (phases, {k: float(v) for k, v in metrics.items()}, s)
         fakes[name] = seen[marks["d"] - 1]  # the d phase scores reals, then the fakes of the updated G
 
@@ -1498,24 +1666,19 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
     loss_keys = ["loss/G/adversarial", "loss/D/adversarial"]
     if sched.do_pl:
         loss_keys += ["loss/G/path_length", "loss/G/path_length/baseline"]
-    flips = {n: ((fakes[n] - fakes["cpu"]).abs() > FLIP).flatten(1).sum(1).tolist() for n in ("card", "cpu_ulp")}
-    flips["cpu_fed"] = ((fakes["card"] - fakes["cpu_fed"]).abs() > FLIP).flatten(1).sum(1).tolist()
+    fake_err = {n: float((fakes[n] - fakes["card" if n == "cpu_fed" else "cpu"]).abs().max()) for n in ("card", "cpu_ulp", "cpu_fed")}
 
-    def value_diff(a, b, n_flips):
-        """losses (relative) and D's outputs (max abs; on fakes over the samples without a
-        flipped raydrop decision) of run a against run b"""
+    def value_diff(a, b):
+        """losses (relative) and D's outputs (max abs) of run a against run b"""
         (pa, ma, _), (pb, mb, _) = runs[a], runs[b]
         d = {k: rel(ma[k], mb[k]) for k in loss_keys}
-        d["y_real"] = float((pa["d"][0]["y_real"] - pb["d"][0]["y_real"]).abs().max())
-        keep = torch.tensor(n_flips) == 0
-        d["y_fake"] = float((pa["d"][0]["y_fake"] - pb["d"][0]["y_fake"])[keep].abs().max()) if keep.any() else 0.0
+        for y in ("y_real", "y_fake"):
+            d[y] = float((pa["d"][0][y] - pb["d"][0][y]).abs().max())
         return d
 
-    value_err = value_diff("card", "cpu", flips["card"])
-    one_ulp_value, fed_value_err = value_diff("cpu_ulp", "cpu", flips["cpu_ulp"]), value_diff("card", "cpu_fed", flips["cpu_fed"])
+    value_err = value_diff("card", "cpu")
+    one_ulp_value, fed_value_err = value_diff("cpu_ulp", "cpu"), value_diff("card", "cpu_fed")
     value_bar = {k: max(PL_BAR if k in PL_VALUES else 1e-4, 2 * one_ulp_value[k]) for k in value_err}
-    flip_bar = max(MAX_FLIPS, 2 * sum(flips["cpu_ulp"]))
-    y_fake_err = (ph["d"][0]["y_fake"] - ph_cpu["d"][0]["y_fake"]).abs().flatten().tolist()
     # R1's penalty is a sum of squared input gradients: it is held to the gradients' bar
     penalty_err = rel(m["loss/D/gradient_penalty"], m_cpu["loss/D/gradient_penalty"]) if sched.do_r1 else 0.0
     phases = [n for n in ("g", "pl", "d", "r1") if n in ph]
@@ -1523,9 +1686,7 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
     fed_grad_err = {f"{n}_phase": rel_max_err(ph[n][1], runs["cpu_fed"][0][n][1]) for n in phases}
     one_ulp = {f"{n}_phase": rel_max_err(ph_ulp[n][1], ph_cpu[n][1]) for n in phases}
     # a phase's bar is 1e-2 of its gradients' largest magnitude (the D side's), or twice the
-    # shift one ulp in every weight causes to the same phase on the CPU where that is
-    # larger: R1's gradients at B=4 follow leaky-ReLU masks that flip within rounding, and
-    # in some runs one ulp moves them by more than 1e-2
+    # shift one ulp in every weight causes to the same phase on the CPU where that is larger
     grad_bar = {k: max(1e-2, 2 * one_ulp[k]) for k in grad_err}
     new, new_cpu, new_ulp = flat_state(st), flat_state(st_cpu), flat_state(st_ulp)
     bufs = [k for k in new_cpu if k.startswith("G") and k.endswith(("w_avg", "ema_var"))]
@@ -1548,11 +1709,12 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
             for n in ("G", "D", "G_ema")}
     upd_err = {n: update_err(new, new_cpu, old, ks) for n, ks in keys.items()}
     upd_ulp = {n: update_err({k: new_ulp[k] - old_ulp[k] + old[k] for k in ks}, new_cpu, old, ks) for n, ks in keys.items()}
-    log(label, f"card vs CPU, fp32 B=4 step at iteration {it} (CPU steps {cpu_s:.1f} s): losses (relative) and D "
-        f"outputs (abs) {value_err}, bars {value_bar} (1e-4, PL's {PL_BAR}, or twice the shift of the CPU against "
-        f"itself with every weight one ulp up, {one_ulp_value}); raydrop decisions taken the other way, per fake, card {flips['card']}, "
-        f"one ulp {flips['cpu_ulp']}, fed {flips['cpu_fed']} (at most {flip_bar}, on at most half the fakes; y_fake "
-        f"per sample {y_fake_err}); "
+    n_decisions = {k: sum(1 for e in tape.tape if e[0] == k) for k in DecisionTape.KINDS}
+    log(label, f"card vs CPU, fp32 B=4 step at iteration {it}{' with noise injection' if use_noise else ''} (CPU "
+        f"steps {cpu_s:.1f} s; the card's decisions replayed, {n_decisions} tensors of them, elements where the "
+        f"run's own would differ {differ}): losses (relative) and D outputs (abs) {value_err}, bars {value_bar} "
+        f"(1e-4, PL's {PL_BAR}, or twice the shift of the CPU against itself with every weight one ulp up, "
+        f"{one_ulp_value}); D's input on the fakes, max abs against the CPU's {fake_err}; "
         f"CPU fed the card's gradients {fed_value_err} (bar 1e-4); R1 penalty {penalty_err:.3g} relative and phase "
         f"gradients' max abs err over the largest magnitude {grad_err}, fed {fed_grad_err} (bars {grad_bar}: 1e-2, or "
         f"twice the one-ulp shift, {one_ulp}); G buffers {buf_err:.3g} of their largest (bar 1e-4); ADA state "
@@ -1561,13 +1723,12 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2"):
         f"updates against the CPU's {upd_err}, one ulp's {upd_ulp} (measured); metrics {m}")
     assert all(value_err[k] <= value_bar[k] for k in value_err), (value_err, value_bar)
     assert all(e <= 1e-4 for e in fed_value_err.values()), fed_value_err
-    assert all(sum(flips[n]) <= flip_bar and 2 * sum(f > 0 for f in flips[n]) <= len(flips[n])
-               for n in ("card", "cpu_fed")), (flips, flip_bar)
     assert penalty_err <= 1e-2 and all(max(grad_err[k], fed_grad_err[k]) <= grad_bar[k] for k in grad_err), \
         (penalty_err, grad_err, fed_grad_err, grad_bar)
     assert buf_err <= 1e-4 and ada_err <= 1e-4 and adam_err <= 1e-4 and ema_ok, (buf_err, ada_err, adam_errs, ema_ok)
-    return {"iteration": it, "value_err": value_err, "value_bar": value_bar, "one_ulp_value_shift": one_ulp_value,
-            "raydrop_flips": flips, "y_fake_err_per_sample": y_fake_err, "fed_value_err": fed_value_err,
+    return {"iteration": it, "use_noise": use_noise, "value_err": value_err, "value_bar": value_bar,
+            "one_ulp_value_shift": one_ulp_value, "fake_max_abs_err": fake_err, "decisions": n_decisions,
+            "decisions_own_differ": differ, "fed_value_err": fed_value_err,
             "penalty_err": penalty_err, "grad_err": grad_err, "fed_grad_err": fed_grad_err,
             "one_ulp_grad_shift": one_ulp, "grad_bar": grad_bar, "buffer_err": buf_err, "ada_err": ada_err,
             "adam_formula_err": adam_errs, "update_err": upd_err, "one_ulp_update_shift": upd_ulp, "metrics": m,
@@ -2042,13 +2203,23 @@ def grads_dict(model):
 
 
 def semseg_card_vs_cpu(dev, root):
-    """One fp32 B=4 step at 64 x 512, TF32 off, on injected dropout masks, on the card and on
-    the CPU from the same weights; a third run on the CPU with every weight one ulp up gives
-    each value's rounding sensitivity. Then two more card steps held to the SGD chain's
-    formula on the card's own gradients."""
+    """One float64 B=4 step at 64 x 512 on injected dropout masks, on the card and on the
+    CPU from the same weights; a third run on the CPU with every weight one ulp up gives
+    each value's rounding sensitivity. The model's ReLU masks and max-pool choices, and
+    its train-mode BatchNorm at B=4 (a channel of small variance scales rounding up), make
+    a float32 step's gradients part by up to 3e-2 of their largest between two correct
+    runs; in float64 the two runs part by rounding far below the bars, so the gate holds
+    by construction (this path launches none of K1-K5, and the float32 and bfloat16 steps
+    run in the phase's command lines and rates). Then two more card steps held to the SGD
+    chain's formula on the card's own gradients."""
+    from dusty_gan_v2_tpu_torch.cli.train_semseg import build_model
+
     cfg = semseg_cfg(root, "float32")
-    tr_cpu = semseg_trainer(cfg, "cpu")
-    tr_dev = semseg_trainer(cfg, dev, copy.deepcopy(tr_cpu.model))
+    model = build_model(cfg)
+    model.dtype = torch.float64  # the compute policy in float64, on float64 copies of the weights
+    model.double()
+    tr_cpu = semseg_trainer(cfg, "cpu", model)
+    tr_dev = semseg_trainer(cfg, dev, copy.deepcopy(model))
     ulp_model = copy.deepcopy(tr_cpu.model)
     with torch.no_grad():
         for p in ulp_model.parameters():
@@ -2065,7 +2236,7 @@ def semseg_card_vs_cpu(dev, root):
     errs = {k: rel_max_err(runs["card"][k], runs["cpu"][k]) for k in runs["card"]}
     one_ulp = {k: rel_max_err(runs["ulp"][k], runs["cpu"][k]) for k in runs["card"]}
     bars = {k: max(1e-2 if k == "grads" else 1e-4, 2 * one_ulp[k]) for k in errs}
-    log("semseg", f"card vs CPU, fp32 B=4 64x512 step 1 (relative to the largest magnitude): {errs}; one ulp in "
+    log("semseg", f"card vs CPU, float64 B=4 64x512 step 1 (relative to the largest magnitude): {errs}; one ulp in "
         f"the weights on the CPU: {one_ulp}; bars {bars}")
     assert all(errs[k] <= bars[k] for k in errs), (errs, bars)
 
@@ -2077,7 +2248,7 @@ def semseg_card_vs_cpu(dev, root):
         if step == 2:
             tr_dev.forward_backward(semseg_batch(root, 4, dev, offset=11), 2, keep=keep.to(dev))
         g = {k: v.double() for k, v in grads_dict(model).items()}
-        p_old = {k: p.detach().double() for k, p in model.named_parameters()}
+        p_old = {k: p.detach().double().clone() for k, p in model.named_parameters()}  # (a float64 p is not copied by .double())
         norm = math.sqrt(sum(float((v * v).sum()) for v in g.values()))
         scale = 1.0 if norm < t.max_grad_norm else t.max_grad_norm / norm
         d = {k: g[k] * scale + t.weight_decay * p_old[k] for k in g}
@@ -2294,7 +2465,8 @@ OTHER_VANILLA_METRICS = "swd,jsd,1nna-cd"
 
 def other_forward_gates(name, dev):
     """The config's G (seed 0) and D (seed 1), with non-zero biases and w_avg, on the card
-    against the same modules on the CPU, B=8 at psi 0.7 on the same z and logistic noise;
+    against the same modules on the CPU, B=8 at psi 0.7 on the same z and logistic noise,
+    the card's decisions (drop mask, leaky ReLU signs) replayed on the CPU (DecisionTape);
     the K1 launches of one forward of each. Returns the card's G and the record."""
     m = train_cfg(name)["model"]
     cpu_gen = torch.Generator().manual_seed(12)
@@ -2310,10 +2482,16 @@ def other_forward_gates(name, dev):
     z = torch.randn(B_SLICE, 512, generator=cpu_gen)
     noise = sample_logistic(cpu_gen, (B_SLICE, 1, 64, 512))
     read_and_reset(CHAIN_COUNTERS)
-    o = sample(G, z.to(dev), None, 0.7, noise.to(dev))
+    tape = DecisionTape()
+    with tape.record():
+        o = sample(G, z.to(dev), None, 0.7, noise.to(dev))
     torch.cuda.synchronize()
     g_k1 = read_and_reset(CHAIN_COUNTERS)
-    o_cpu = sample(G_cpu, z, None, 0.7, noise)
+    differ = {}
+    with tape.replay():
+        o_cpu = sample(G_cpu, z, None, 0.7, noise)
+    tape.check_used()
+    differ["cpu"] = dict(tape.differ)
     with torch.no_grad():
         read_and_reset(CHAIN_COUNTERS)
         y = D(o_cpu["image"].to(dev), blur_fuse=False)
@@ -2324,20 +2502,19 @@ def other_forward_gates(name, dev):
     with torch.no_grad():
         for prm in G_ulp.parameters():
             prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
-    o_ulp = sample(G_ulp, z, None, 0.7, noise)
+    with tape.replay():
+        sample(G_ulp, z, None, 0.7, noise)
+    differ["one_ulp"] = dict(tape.differ)
     raydrop = "raydrop_mask" in o_cpu
-    keys = ("image_orig", "raydrop_logit") if raydrop else ("image",)
+    keys = ("image", "image_orig", "raydrop_logit") if raydrop else ("image",)
     errs = {k: float((o[k].cpu() - o_cpu[k]).abs().max()) for k in keys}
     errs["D_logits"] = float((y.cpu() - y_cpu).abs().max())
-    flips = {"card": int((o["raydrop_mask"].cpu() != o_cpu["raydrop_mask"]).sum()),
-             "one_ulp": int((o_ulp["raydrop_mask"] != o_cpu["raydrop_mask"]).sum())} if raydrop else {}
-    flip_bar = max(MAX_FLIPS, 2 * flips.get("one_ulp", 0))
-    rec = {"max_abs_err": errs, "raydrop_flips": flips, "flip_bar": flip_bar, "k1_G_forward": g_k1["fused_bias_act"],
+    rec = {"max_abs_err": errs, "decisions_own_differ": differ, "k1_G_forward": g_k1["fused_bias_act"],
            "k1_D_forward": d_k1["fused_bias_act"], "outputs": sorted(o), "logit_scale": float(y_cpu.abs().max())}
-    log("other", f"{name}: card vs CPU fp32, B={B_SLICE} psi 0.7, max abs err {errs} (bar 1e-4; logits up to "
-        f"{rec['logit_scale']:.3f}); drop-mask flips {flips} (bar {flip_bar}); K1 per forward G {g_k1}, D {d_k1}")
+    log("other", f"{name}: card vs CPU fp32, B={B_SLICE} psi 0.7, the card's decisions replayed (elements where the "
+        f"CPU's own would differ, one ulp in the weights' {differ}): max abs err {errs} (bar 1e-4; logits up to "
+        f"{rec['logit_scale']:.3f}); K1 per forward G {g_k1}, D {d_k1}")
     assert all(e <= 1e-4 for e in errs.values()), errs
-    assert not raydrop or flips["card"] <= flip_bar, (flips, flip_bar)
     assert g_k1 == {"fused_bias_act": OTHER_K1_G, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, g_k1
     assert d_k1 == {"fused_bias_act": OTHER_K1_D, "fused_chain_fwd": 0, "fused_chain_bwd": 0}, d_k1
     assert tuple(o["image"].shape) == (B_SLICE, 1, 64, 512) and tuple(y.shape) == (B_SLICE, 1, 1, 1)
@@ -2676,23 +2853,29 @@ def inversion_profile(dev, ckpt, root, sid):
 
 
 def bev_card_vs_cpu(dev, inv):
-    """CoordBridge's bird's-eye view of `inv` (B, 1, 64, 512) on the card and the CPU: the
-    share of lit pixels past 1e-4, held to BEV_BAR or twice the share one ulp in `inv`
-    moves on the CPU (a pixel's colour is a normal, and nearly collinear neighbours' normals
-    follow rounding; the card's scatter adds in no fixed order): not to the bit."""
+    """CoordBridge's bird's-eye view of `inv` (B, 1, 64, 512) on the card and the CPU, in
+    float64: the share of lit pixels past 1e-4, held to BEV_BAR or twice the share one ulp
+    in `inv` moves on the CPU. A pixel's colour is a normal, and the normal of a point
+    whose two closest neighbours nearly tie, or lie nearly on a line, follows rounding: in
+    float32 one ulp in the input moves 6.4% of the lit pixels past 1e-4, as far as the
+    card does (the card's scatter adds in no fixed order as well), so that gate decided
+    by rounding. In float64 those choices are the same on both sides but at ties within
+    1e-16, and the gate holds by construction (the path launches no kernel of the port,
+    and the float32 view is drawn in the image tick's panels)."""
     from dusty_gan_v2_tpu_torch.geometry import make_Rt
 
-    angle = load_angle(device=dev)
+    angle = load_angle(device=dev).double()
     coord_d, coord_c = make_coord_bridge(angle), make_coord_bridge(angle.cpu())
-    inv_c = inv.cpu()
-    bev_d = coord_d.make_birds_eye_view(inv.to(dev), make_Rt(z=0.7, device=dev)).cpu()
-    bev_c = coord_c.make_birds_eye_view(inv_c, make_Rt(z=0.7))
-    bev_u = coord_c.make_birds_eye_view(torch.nextafter(inv_c, torch.full_like(inv_c, math.inf)), make_Rt(z=0.7))
+    inv_c = inv.double().cpu()
+    rt = lambda device: tuple(m.double() for m in make_Rt(z=0.7, device=device))  # noqa: E731
+    bev_d = coord_d.make_birds_eye_view(inv_c.to(dev), rt(dev)).cpu()
+    bev_c = coord_c.make_birds_eye_view(inv_c, rt("cpu"))
+    bev_u = coord_c.make_birds_eye_view(torch.nextafter(inv_c, torch.full_like(inv_c, math.inf)), rt("cpu"))
     lit = bev_c.amax(dim=1) > 0
     off = (bev_d - bev_c).abs().amax(dim=1) > 1e-4
     off_u = (bev_u - bev_c).abs().amax(dim=1) > 1e-4
     share, share_u = float(off[lit].float().mean()), float(off_u[lit].float().mean())
-    return {"max_abs_err": float((bev_d - bev_c).abs().max()), "lit_share": float(lit.float().mean()),
+    return {"dtype": "float64", "max_abs_err": float((bev_d - bev_c).abs().max()), "lit_share": float(lit.float().mean()),
             "lit_share_past_1e-4": share, "lit_share_past_1e-4_one_ulp": share_u, "bar": max(BEV_BAR, 2 * share_u)}
 
 
@@ -2982,12 +3165,14 @@ def parallel_start(dev, path):
     torch.save(state_payload(st), path)
 
 
-def parallel_steps(dev, start_path, iters, rank=0, world=1, ulp_up=False, save_dir=None):
+def parallel_steps(dev, start_path, iters, rank=0, world=1, ulp_up=False, save_dir=None, tapes=None):
     """(b)'s steps `iters` from the state at `start_path` under deterministic algorithms,
     each on this rank's rows, from the trainer's own generator. Returns per iteration the
     metrics, D's outputs and the fakes D scored in the d phase (this rank's rows, on the
-    host), and the parameters before and after. With `save_dir`, the state before each
-    iteration after the first is written there (state_<it>.pt)."""
+    host), and the parameters before and after. Each step's discrete decisions are
+    recorded ("tape"), or, given `tapes` (one DecisionTape per iteration), replayed. With
+    `save_dir`, the state before each iteration after the first is written there
+    (state_<it>.pt)."""
     from dusty_gan_v2_tpu_torch.training.checkpoint import load_state_payload, state_payload
 
     tr = parallel_trainer(dev)
@@ -3013,11 +3198,17 @@ def parallel_steps(dev, start_path, iters, rank=0, world=1, ulp_up=False, save_d
                 rec["fakes"] = seen[-1]  # the d phase scores the reals, then the fakes
 
         hook = st.D.register_forward_pre_hook(lambda mod, args: seen.append(args[0].detach().float().cpu()))
+        tape = DecisionTape() if tapes is None else tapes[i]
         try:
-            with deterministic():
+            with deterministic(), tape.record() if tapes is None else tape.replay():
                 m = tr.step(st, batch, it, on_phase=on_phase)
         finally:
             hook.remove()
+        if tapes is None:
+            rec["tape"] = tape.tape
+        else:
+            tape.check_used()
+            rec["decisions_own_differ"] = dict(tape.differ)
         rec["metrics"] = {k: float(v) for k, v in m.items()}
         out.append(rec)
     return out, start, params()
@@ -3043,7 +3234,9 @@ def parallel_two_processes(dev):
     """(b): two processes of this script on the card over gloo against one process. Each
     iteration of the two processes is held against one process's step from the same state
     (the state the two processes' earlier iterations made), as phase 9 holds one step:
-    a few steps on their own trajectories part far, through raydrop decisions that flip."""
+    a few steps on their own trajectories part far, through raydrop decisions that flip.
+    The processes record their discrete decisions, and the one-process steps replay them
+    joined along the batch (DecisionTape), so the two part by rounding only."""
     import tempfile
 
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
@@ -3072,33 +3265,31 @@ def parallel_two_processes(dev):
         ranks = [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in range(PAR_WORLD)]
         for i, it in enumerate(PAR_ITERS):
             path = start_path if i == 0 else Path(out_dir) / f"state_{it}.pt"
-            (one,), start, end1 = parallel_steps(dev, path, (it,))
-            (ulp_run,), start_ulp, end_ulp = parallel_steps(dev, path, (it,), ulp_up=True)
+            tape = DecisionTape.concat([DecisionTape(r["steps"][i].pop("tape")) for r in ranks], dev)
+            (one,), start, end1 = parallel_steps(dev, path, (it,), tapes=[tape])
+            (ulp_run,), start_ulp, end_ulp = parallel_steps(dev, path, (it,), ulp_up=True, tapes=[tape])
             if i == 0:
                 assert all(torch.equal(start[k], ranks[0]["start"][k]) for k in start), "the processes started elsewhere"
             two = {k: torch.cat([r["steps"][i][k] for r in ranks]) for k in ("y_real", "y_fake", "fakes")}
             m2 = ranks[0]["steps"][i]["metrics"]
             assert all(r["steps"][i]["metrics"] == m2 for r in ranks), "the ranks' metrics differ"
-            flips = {"two": ((two["fakes"] - one["fakes"]).abs() > FLIP).flatten(1).sum(1),
-                     "one_ulp": ((ulp_run["fakes"] - one["fakes"]).abs() > FLIP).flatten(1).sum(1)}
+            fake_err = {"two": float((two["fakes"] - one["fakes"]).abs().max()),
+                        "one_ulp": float((ulp_run["fakes"] - one["fakes"]).abs().max())}
 
-            def diff(m, y, n_flips):
+            def diff(m, y):
                 d = {k: rel(m[k], one["metrics"][k]) for k in one["metrics"] if k.startswith("loss/")}
-                d["y_real"] = float((y["y_real"] - one["y_real"]).abs().max())
-                keep = n_flips == 0
-                keep = keep if keep.any() else torch.ones_like(keep)  # every fake flipped: all of them
-                d["y_fake"] = float((y["y_fake"] - one["y_fake"])[keep].abs().max())
+                for k in ("y_real", "y_fake"):
+                    d[k] = float((y[k] - one[k]).abs().max())
                 return d
 
-            err, ulp_err = diff(m2, two, flips["two"]), diff(ulp_run["metrics"], ulp_run, flips["one_ulp"])
+            err, ulp_err = diff(m2, two), diff(ulp_run["metrics"], ulp_run)
             # R1's penalty is a sum of squared input gradients: phase 9 holds it to the gradients' bar
             bar = {k: max(1e-2 if k == "loss/D/gradient_penalty" else 1e-4, 2 * ulp_err[k]) for k in err}
-            # phase 9's floor of MAX_FLIPS pixels is for 4 fakes: here it scales with the batch
-            flip_bar = max(MAX_FLIPS * PAR_B // 4, 2 * int(flips["one_ulp"].sum()))
-            n_fakes = int((flips["two"] > 0).sum())
-            rec = {"iteration": it, "err": err, "bar": bar, "one_ulp": ulp_err, "flips": flips["two"].tolist(),
-                   "one_ulp_flips": flips["one_ulp"].tolist(), "flip_bar": flip_bar, "metrics": m2,
-                   "one_process_metrics": one["metrics"]}
+            rec = {"iteration": it, "err": err, "bar": bar, "one_ulp": ulp_err, "fake_max_abs_err": fake_err,
+                   "decisions": {k: sum(1 for e in tape.tape if e[0] == k) for k in DecisionTape.KINDS},
+                   "decisions_own_differ": {"one": one["decisions_own_differ"],
+                                            "one_ulp": ulp_run["decisions_own_differ"]},
+                   "metrics": m2, "one_process_metrics": one["metrics"]}
             if i == len(PAR_ITERS) - 1:  # the last update, against one process's from the same state
                 keys = {n: [k for k in start if k.startswith(n + ".")] for n in ("G", "D")}
                 end2 = ranks[0]["end"]
@@ -3107,12 +3298,12 @@ def parallel_two_processes(dev):
                                                            end1, start, ks) for n, ks in keys.items()}
             per_it.append(rec)
             log("parallel", f"(b) iteration {it}: 2 x 16 (gloo) against 1 x 32 from the same state, losses "
-                f"(relative) and D outputs (abs) {err}, bars {bar} (1e-4 or twice one ulp's {ulp_err}); raydrop "
-                f"decisions taken the other way {int(flips['two'].sum())} on {n_fakes} fakes (bar {flip_bar} on "
-                f"{PAR_B // 2}; one ulp's {int(flips['one_ulp'].sum())}); update {rec.get('update_err')} of the "
-                f"largest (one ulp's {rec.get('one_ulp_update_err')}); metrics {m2}")
+                f"(relative) and D outputs (abs) {err}, bars {bar} (1e-4 or twice one ulp's {ulp_err}); the "
+                f"processes' decisions replayed ({rec['decisions']} tensors; elements where the one-process runs' "
+                f"own would differ {rec['decisions_own_differ']}); D's input on the fakes, max abs {fake_err}; "
+                f"update {rec.get('update_err')} of the largest (one ulp's {rec.get('one_ulp_update_err')}); "
+                f"metrics {m2}")
             assert all(err[k] <= bar[k] for k in err), (it, err, bar)
-            assert int(flips["two"].sum()) <= flip_bar and 2 * n_fakes <= PAR_B, (it, flips)
             torch.cuda.empty_cache()
     last = per_it[-1]
     log("parallel", f"(b) children {children_s:.1f} s (each: start, gloo rendezvous, "
@@ -3190,29 +3381,279 @@ def phase_parallel(dev, smi, cli_rec, semseg_rec):
     return rec
 
 
+# phase 15: the JAX package's and the reference implementation's checkpoints, and noise
+# injection: (a) a train state in the JAX CLI's format, resumed; (b) reference-layout files
+# of a noise G + D and a SqueezeSegV2, evaluated; (c) the noise generator card against CPU
+INTEROP_RESUME = (2, 6)  # (a): the state after iterations 1-2, resumed over 3-6 (ADA at 4)
+INTEROP_METRICS = "jsd,1nna-emd"
+GAN_CFG = Path(__file__).resolve().parent / "configs" / "gans"
+
+
+def interop_cfg(name, tmp):
+    """configs/gans/<name>.yaml on the fabricated tree under `tmp`: no image tick, no
+    validation, stats every iteration, a checkpoint at the end of (a)'s run."""
+    from dusty_gan_v2_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(GAN_CFG / f"{name}.yaml"))
+    cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+    ck = cfg.training.checkpoint
+    ck.save_stats, ck.save_model, ck.validation, ck.save_image = 1, INTEROP_RESUME[1], 10**9, 10**9
+    cfg.training.total_kimg = INTEROP_RESUME[1] * int(cfg.training.batch_size) / 1e3
+    return cfg
+
+
+def interop_train_state(dev, tmp):
+    """(a): configs/gans/dusty_v2_bf16.yaml at B=128 after iterations 1-2, written in the JAX
+    CLI's format (save_jax_checkpoint, through convert/flax_msgpack.py) and in the port's;
+    each read back (without and with a template) equal to the state written, bit for bit;
+    train_gan --resume from each over iterations 3-6 under deterministic algorithms: the
+    same stats rows and the same final state, K1 / K4 / K5 launched as four steps."""
+    from dusty_gan_v2_tpu_torch.cli import train_gan
+    from dusty_gan_v2_tpu_torch.training.checkpoint import (
+        checkpoint_format, load_checkpoint, save_checkpoint, save_jax_checkpoint, state_payload,
+    )
+    from dusty_gan_v2_tpu_torch.utils.config import save_config
+
+    cfg = interop_cfg("dusty_v2_bf16", tmp)
+    save_config(cfg, str(tmp / "gan.yaml"))
+    B, first = int(cfg.training.batch_size), INTEROP_RESUME[0]
+    tr = Trainer(cfg.to_dict(), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    for it in range(1, first + 1):
+        tr.step(st, train_batch(tr, it), it)
+    written = state_payload(st)
+    rec, paths = {"files": {}}, {"jax": tmp / "jax.ckpt", "port": tmp / "port.ckpt"}
+    t0 = time.perf_counter()
+    save_jax_checkpoint(str(paths["jax"]), cfg, st, tr.angle, first * B)
+    rec["jax_write_s"] = time.perf_counter() - t0
+    save_checkpoint(str(paths["port"]), cfg, st, tr.angle, first * B)
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        _, plain, angle, num_imgs = load_checkpoint(str(path))
+        load_s = time.perf_counter() - t0
+        template = load_checkpoint(str(path), tr.init_state(seed=1))[1]
+        bad = payload_equal({k: plain[k] for k in ("G", "G_ema", "D", "ada", "pl_ema", "iteration")},
+                            {k: written[k] for k in ("G", "G_ema", "D", "ada", "pl_ema", "iteration")})
+        bad += payload_equal(state_payload(template), written, "template")
+        assert not bad and num_imgs == first * B and torch.equal(angle, tr.angle.cpu()), (name, bad[:5])
+        rec["files"][name] = {"format": checkpoint_format(str(path)), "mib": path.stat().st_size / 2**20,
+                              "load_s": load_s}
+    del tr, st, template, plain
+    torch.cuda.empty_cache()
+    want = {k: (INTEROP_RESUME[1] - first) * v for k, v in STEP_LAUNCHES[False].items()}
+    runs = {}
+    for name, path in paths.items():
+        argv = ["--config", str(tmp / "gan.yaml"), "--log_dir", str(tmp / name), "--num_workers", "4",
+                "--resume", str(path), "--device", str(dev)]
+        read_and_reset(CHAIN_COUNTERS)
+        t0 = time.perf_counter()
+        with deterministic():
+            train_gan.main(argv)
+            torch.cuda.synchronize()
+        launches = read_and_reset(CHAIN_COUNTERS)
+        rows = stats_rows(tmp / name / "stats.jsonl")
+        final = torch.load(tmp / name / "models" / f"checkpoint_{INTEROP_RESUME[1] * B:010d}.ckpt",
+                           map_location="cpu", weights_only=True)["state"]
+        runs[name] = {"s": time.perf_counter() - t0, "launches": launches, "rows": rows, "final": final}
+        assert launches == want, (name, launches, want)
+        assert [r["iteration"] for r in rows] == list(range(first + 1, INTEROP_RESUME[1] + 1)), rows
+    rec["stats_diff"] = rows_diff(runs["jax"]["rows"], runs["port"]["rows"])
+    final_bad = payload_equal(runs["jax"].pop("final"), runs["port"].pop("final"))
+    rec["runs"] = runs
+    log("interop", f"(a) bf16 B={B} train state after iterations 1-{first}: JAX-format file "
+        f"{rec['files']['jax']['mib']:.1f} MiB written in {rec['jax_write_s']:.3f} s, read in "
+        f"{rec['files']['jax']['load_s']:.3f} s; port file {rec['files']['port']['mib']:.1f} MiB read in "
+        f"{rec['files']['port']['load_s']:.3f} s; both read back bit-equal, without and with a template")
+    log("interop", f"(a) train_gan --resume over iterations {first + 1}-{INTEROP_RESUME[1]} under deterministic "
+        f"algorithms: from the JAX file {runs['jax']['s']:.2f} s, from the port file {runs['port']['s']:.2f} s; "
+        f"launches {runs['jax']['launches']} (want {want}); stats differ by {rec['stats_diff']}; final states "
+        f"differ in {final_bad[:5]}")
+    assert all(v == 0.0 for v in rec["stats_diff"].values()) and not final_bad, (rec["stats_diff"], final_bad[:5])
+    return rec
+
+
+def interop_reference(dev, tmp):
+    """(b): configs/gans/dusty_v2.yaml's G with noise injection (seeded, non-zero biases,
+    noise weights and w_avg) and D, and configs/semseg's SqueezeSegV2, written as reference
+    `.pth` files (convert/torch_weights.py::reference_state_dict, cfg as a dict): they load
+    through autoload_ckpt and test_semseg's loader bit-equal, and test_gan evaluates the
+    G over jsd and 1nna-emd at 64 + 64 clouds (K1, K2, K3)."""
+    from dusty_gan_v2_tpu_torch.cli import test_gan
+    from dusty_gan_v2_tpu_torch.cli.train_semseg import build_model
+    from dusty_gan_v2_tpu_torch.convert import reference_state_dict
+    from dusty_gan_v2_tpu_torch.pretrained import autoload_ckpt
+    from dusty_gan_v2_tpu_torch.semseg.train_step import load_checkpoint as semseg_load
+
+    cfg = interop_cfg("dusty_v2", tmp)
+    cfg.model.generator.synthesis_kwargs.use_noise = True
+    G = build_generator(cfg.model.generator, device="cpu", seed=0)
+    D = build_discriminator(cfg.model.discriminator, device="cpu", seed=1)
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for mod in (G, D):
+            for k, prm in mod.named_parameters():
+                if k.endswith("bias"):
+                    prm.normal_(0.0, 0.1, generator=gen)
+        G.w_avg.normal_(0.0, 0.3, generator=gen)
+    seed_noise_weights(G, 22)
+    angle = load_angle(device="cpu")
+    gan_pth = tmp / "dusty_v2_noise.pth"
+    g_ref = reference_state_dict(G.state_dict(), "G", "dusty_v2")
+    torch.save({"cfg": cfg.to_dict(), "angle": angle, "G": g_ref, "G_ema": g_ref,
+                "D": reference_state_dict(D.state_dict(), "D", "dusty_v2")}, gan_pth)
+    t0 = time.perf_counter()
+    ck = autoload_ckpt(str(gan_pth), dev)
+    rec = {"gan_pth": {"mib": gan_pth.stat().st_size / 2**20, "autoload_s": time.perf_counter() - t0}}
+    bad = [n for n, net in (("G", G), ("G_ema", G), ("D", D))
+           if payload_equal({k: v.cpu() for k, v in ck[n].state_dict().items()}, net.state_dict())]
+    assert not bad and torch.equal(ck["angle"].cpu(), angle), bad
+
+    scfg = semseg_cfg(tmp, "float32")
+    model = build_model(scfg)
+    seg_pth = tmp / "squeezeseg_v2.pth"
+    torch.save({"cfg": scfg.to_dict(), "model": reference_state_dict(model.state_dict(), "squeezeseg", "squeezeseg_v2")},
+               seg_pth)
+    t0 = time.perf_counter()
+    _, payload = semseg_load(str(seg_pth))
+    rec["semseg_pth"] = {"mib": seg_pth.stat().st_size / 2**20, "load_s": time.perf_counter() - t0}
+    assert not payload_equal({**payload["params"], **payload["batch_stats"]}, model.state_dict())
+
+    fps_cuda.launches = emd_cuda.launches = 0
+    read_and_reset(CHAIN_COUNTERS)
+    t0 = time.perf_counter()
+    scores, stages = test_gan.main(["--ckpt_path", str(gan_pth), "--metrics", INTEROP_METRICS, "--num_samples",
+                                    str(N_CLOUDS), "--num_subsample", str(N_CLOUDS), "--device", str(dev)])
+    rec["test_gan_s"] = time.perf_counter() - t0
+    rec.update(test_gan_scores=scores, test_gan_stage_s=stages, test_gan_launches={
+        "fused_bias_act": read_and_reset(CHAIN_COUNTERS)["fused_bias_act"], "fps": fps_cuda.launches,
+        "emd": emd_cuda.launches})
+    log("interop", f"(b) reference .pth: noise G + D {rec['gan_pth']['mib']:.1f} MiB through autoload_ckpt in "
+        f"{rec['gan_pth']['autoload_s']:.3f} s, SqueezeSegV2 {rec['semseg_pth']['mib']:.1f} MiB through test_semseg's "
+        f"loader in {rec['semseg_pth']['load_s']:.3f} s, both bit-equal; test_gan --metrics {INTEROP_METRICS} "
+        f"{N_CLOUDS} + {N_CLOUDS} clouds: {rec['test_gan_s']:.2f} s, stages {stages}, launches "
+        f"{rec['test_gan_launches']}, scores {scores}")
+    assert rec["test_gan_launches"] == {"fused_bias_act": G_K1, "fps": 2, "emd": 48}, rec["test_gan_launches"]
+    assert all(math.isfinite(v) for v in scores.values()), scores
+    return rec, gan_pth
+
+
+def interop_noise(dev, gan_pth, smi):
+    """(c): the noise G of (b) at fp32 B=8 with fixed maps (models.fixed_noise_maps) card
+    against CPU, the card's decisions replayed (outputs 1e-4); the fp32 B=4 training step
+    card against CPU with noise, without and with PL (train_card_vs_cpu); sampling fp32
+    B=128, noise maps drawn per sample on the card, against the same G without noise
+    injection, in turns."""
+    from dusty_gan_v2_tpu_torch.models import fixed_noise_maps
+    from dusty_gan_v2_tpu_torch.pretrained import autoload_ckpt
+
+    ck = autoload_ckpt(str(gan_pth), dev)
+    G, G_cpu = ck["G_ema"], copy.deepcopy(ck["G_ema"]).cpu()
+    gen = torch.Generator().manual_seed(23)
+    angle = ck["angle"]
+    z = torch.randn(B_SLICE, G.style_dim, generator=gen)
+    gumbel = sample_logistic(gen, (B_SLICE, 1, *angle.shape[-2:]))
+    tape = DecisionTape()
+    read_and_reset(CHAIN_COUNTERS)
+    with tape.record():
+        o = sample(G, z.to(dev), angle, 0.7, gumbel.to(dev), noise=fixed_noise_maps(G, 5, dev))
+    torch.cuda.synchronize()
+    k1 = read_and_reset(CHAIN_COUNTERS)["fused_bias_act"]
+    with tape.replay():
+        o_cpu = sample(G_cpu, z, angle.cpu(), 0.7, gumbel, noise=fixed_noise_maps(G_cpu, 5, "cpu"))
+    tape.check_used()
+    o0 = sample(G_cpu, z, angle.cpu(), 0.7, gumbel, noise=[[torch.zeros_like(m) for m in b]
+                                                            for b in fixed_noise_maps(G_cpu, 5, "cpu")])
+    rec = {"forward_max_abs_err": {k: float((o[k].cpu() - o_cpu[k]).abs().max())
+                                   for k in ("image", "image_orig", "raydrop_logit")},
+           "decisions_own_differ": dict(tape.differ), "forward_k1": k1,
+           "noise_moves": float((o_cpu["image_orig"] - o0["image_orig"]).abs().max())}
+    log("interop", f"(c) noise G fp32 B={B_SLICE}, fixed maps: card vs CPU max abs err {rec['forward_max_abs_err']} "
+        f"(the card's decisions replayed; elements where the CPU's own differ {rec['decisions_own_differ']}); K1 {k1} "
+        f"a forward; the maps move image_orig by up to {rec['noise_moves']:.4f}")
+    assert all(e <= 1e-4 for e in rec["forward_max_abs_err"].values()) and k1 == G_K1 and rec["noise_moves"] > 1e-3, rec
+    rec["train_card_vs_cpu"] = train_card_vs_cpu(dev, label="interop-noise", use_noise=True)
+    rec["train_card_vs_cpu_pl"] = train_card_vs_cpu(dev, it=36, pl=2, label="interop-noise-pl", use_noise=True)
+
+    plain = build_generator({**ck["cfg"].model.generator.to_dict(), "synthesis_kwargs": {
+        **ck["cfg"].model.generator.synthesis_kwargs.to_dict(), "use_noise": False}}, device=dev)
+    plain.load_state_dict({k: v for k, v in G.state_dict().items() if ".noise" not in k}, strict=True)
+    plain.eval()
+    zb = torch.randn(B_WIDE, G.style_dim, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    gb = sample_logistic(torch.Generator(device=dev).manual_seed(1), (1, 1, *angle.shape[-2:]), dev)
+    pe = build_pe_cache(G, angle)
+    draw = torch.Generator(device=dev).manual_seed(2)
+    fns = {"noise": lambda: sample(G, zb, None, 0.7, gb, draw, pe_cache=pe),
+           "plain": lambda: sample(plain, zb, None, 0.7, gb, pe_cache=pe)}
+    rates = {}
+    for name in ("noise", "plain", "plain_again", "noise_again"):
+        ms = cuda_ms(fns[name.split("_")[0]], reps=10)
+        rates[name] = {"ms": ms, "samples_per_s": 1e3 * B_WIDE / ms}
+    rec["rates_fp32_b128"] = rates
+    log("interop", f"(c) sampling fp32 B={B_WIDE} (noise maps drawn per sample on the card) against the same G "
+        f"without noise injection, in turns: " + ", ".join(f"{k} {v['ms']:.3f} ms = {v['samples_per_s']:.1f} samples/s"
+                                                           for k, v in rates.items()) + f" ({smi})")
+    return rec
+
+
+def phase_interop(dev, smi):
+    """Phase 15: (a) the JAX CLI's train-state file, written, read and resumed; (b) reference
+    `.pth` files read and evaluated; (c) noise injection card against CPU and its rate."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_interop_") as tmp:
+        tmp = Path(tmp)
+        fabricate_kitti(tmp / "kitti_raw")
+        rec["train_state"] = interop_train_state(dev, tmp)
+        torch.cuda.empty_cache()
+        rec["reference"], gan_pth = interop_reference(dev, tmp)
+        rec["noise"] = interop_noise(dev, gan_pth, smi)
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    log("interop", f"phase 15: {rec['s']:.1f} s ({smi})")
+    return rec
+
+
+def check_kernels_line(ks):
+    for k in ks:
+        assert all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")) and k["launches"] > 0, k
+
+
+def run_phase(name, fn, *args):
+    """fn(*args); a failure prints "chip_smoke: FAILED in <name>: <error>" on stdout and
+    propagates (its traceback on stderr, the exit code non-zero)."""
+    try:
+        return fn(*args)
+    except Exception as e:
+        print(f"chip_smoke: FAILED in {name}: {type(e).__name__}: {' '.join(str(e).split())[:4000]}", flush=True)
+        raise
+
+
 def main():
-    smi = phase_device()
+    smi = run_phase("device", phase_device)
     dev = torch.device("cuda:0")
-    build_s, reports = phase_build()
+    build_s, reports = run_phase("build", phase_build)
     gen = torch.Generator(device=dev).manual_seed(0)
-    k1, k1_rows = check_fused_bias_act(dev, gen)
-    k2, k2_rows = check_fps(dev, gen, smi)
-    k3, k3_rows = check_emd(dev, smi)
-    k4, k5, chain_rows = check_fused_chain(dev, gen)
-    G_cpu, launches, slice_rec, x_fake = phase_slice(dev)
+    k1, k1_rows = run_phase("kernels: fused_bias_act", check_fused_bias_act, dev, gen)
+    k2, k2_rows = run_phase("kernels: fps", check_fps, dev, gen, smi)
+    k3, k3_rows = run_phase("kernels: emd", check_emd, dev, smi)
+    k4, k5, chain_rows = run_phase("kernels: fused_chain", check_fused_chain, dev, gen)
+    G_cpu, launches, slice_rec, x_fake = run_phase("4 slice", phase_slice, dev)
     k1["launches"], k2["launches"] = launches["fused_bias_act"], launches["fps"]
-    eval_launches, eval_rec = phase_evaluate(G_cpu, dev, smi)
+    eval_launches, eval_rec = run_phase("5 evaluate", phase_evaluate, G_cpu, dev, smi)
     k3["launches"] = eval_launches["emd"]
-    rates = phase_rates(G_cpu, dev, smi)
-    D_cpu, critic_launches, critic_rec = phase_critic(x_fake, dev)
+    rates = run_phase("6 rates", phase_rates, G_cpu, dev, smi)
+    D_cpu, critic_launches, critic_rec = run_phase("7 critic", phase_critic, x_fake, dev)
     k4["launches"], k5["launches"] = critic_launches["fused_chain_fwd"], critic_launches["fused_chain_bwd"]
-    critic_rates = phase_critic_rates(D_cpu, G_cpu, dev)
-    train_launches, train_rec = phase_train(dev, smi)
-    cli_rec = phase_cli(dev, smi, train_rec["rates"][0]["imgs_per_s"])
-    semseg_rec = phase_semseg(dev, smi)
-    other_rec = phase_other_archs(dev, smi)
-    inversion_rec = phase_inversion(dev, smi)
-    parallel_rec = phase_parallel(dev, smi, cli_rec, semseg_rec)
+    critic_rates = run_phase("8 critic rates", phase_critic_rates, D_cpu, G_cpu, dev)
+    train_launches, train_rec = run_phase("9 train", phase_train, dev, smi)
+    cli_rec = run_phase("10 cli", phase_cli, dev, smi, train_rec["rates"][0]["imgs_per_s"])
+    semseg_rec = run_phase("11 semseg", phase_semseg, dev, smi)
+    other_rec = run_phase("12 other archs", phase_other_archs, dev, smi)
+    inversion_rec = run_phase("13 inversion", phase_inversion, dev, smi)
+    parallel_rec = run_phase("14 parallel", phase_parallel, dev, smi, cli_rec, semseg_rec)
+    interop_rec = run_phase("15 interop", phase_interop, dev, smi)
     # this slice's main path is demo_inversion at its defaults: K1 at each of its 1,001 G
     # forwards; K4 and K5 over train_gan's 16 iterations (8, a checkpoint, 8 resumed), K2 and
     # K3 in test_gan (phase 10), the paths that run them
@@ -3227,12 +3668,11 @@ def main():
         "kernels": ks, "fused_bias_act_sites": k1_rows, "fps_by_batch": k2_rows, "emd_by_clouds": k3_rows, "slice": slice_rec,
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
-        "other_archs": other_rec, "inversion": inversion_rec, "parallel": parallel_rec,
+        "other_archs": other_rec, "inversion": inversion_rec, "parallel": parallel_rec, "interop": interop_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps(record, indent=1))
-    for k in ks:
-        assert all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")) and k["launches"] > 0, k
+    OUT.write_text(json.dumps(record, indent=1, default=str))
+    run_phase("kernels line", check_kernels_line, ks)
     print(json.dumps({"kernels": ks}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

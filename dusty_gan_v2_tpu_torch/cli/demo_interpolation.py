@@ -30,6 +30,7 @@ import scipy.interpolate
 import torch
 
 from ..geometry import CoordBridge
+from ..models import fixed_noise_maps
 from ..pretrained import autoload_ckpt
 from ..utils import colorize_indices, init_random_seed, resolve_device, tanh_to_sigmoid
 from ..utils.image_io import save_video
@@ -84,6 +85,8 @@ def main(argv: Optional[List[str]] = None, normal: Optional[Callable[[tuple], to
         ws = G.mapping_network(zs).cpu().numpy()
     path = interpolation_path(ws, args.frames_per_anchor)
     noise = torch.as_tensor(fixed_logistic_noise(H, W), device=device)
+    maps = fixed_noise_maps(G, args.seed, device)
+    noise_kw = {} if maps is None else {"noise": maps}
 
     frames, points, normals = [], [], []
     if device.type == "cuda":
@@ -92,7 +95,7 @@ def main(argv: Optional[List[str]] = None, normal: Optional[Callable[[tuple], to
     with torch.no_grad():
         for w in path:
             w_all = torch.as_tensor(w, device=device)[None, None].expand(1, num_styles, -1)
-            o = G(w_all, angle, truncation_psi=args.truncation_psi, gumbel_noise=noise, input_w=True)
+            o = G(w_all, angle, truncation_psi=args.truncation_psi, gumbel_noise=noise, input_w=True, **noise_kw)
             image = torch.clamp(tanh_to_sigmoid(o["image"]), 0, 1)
             if args.mode == "2d":
                 panels = [image]

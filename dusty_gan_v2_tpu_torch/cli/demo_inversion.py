@@ -41,6 +41,7 @@ import torch
 from ..datasets.kitti import KITTIRaw
 from ..geometry import CoordBridge
 from ..inversion import geocross_loss, multiscale_masked_loss, spherical_project, stylegan2_lr_schedule
+from ..models import fixed_noise_maps
 from ..pretrained import autoload_ckpt
 from ..utils import colorize, init_random_seed, resolve_device, tanh_to_sigmoid
 from ..utils.image_io import to_uint8, write_png
@@ -57,11 +58,14 @@ class Inversion:
     depth_norm and inv_depth_norm, through `__call__(G, latent, phase) -> (loss, outputs)`."""
 
     def __init__(self, coord: CoordBridge, angle: torch.Tensor, depth: torch.Tensor, mask: torch.Tensor,
-                 gumbel_noise: torch.Tensor, latent_type: str, num_styles: int):
-        """depth and mask (1, 1, H, W): the target in metres and its valid pixels."""
+                 gumbel_noise: torch.Tensor, latent_type: str, num_styles: int, noise_maps=None):
+        """depth and mask (1, 1, H, W): the target in metres and its valid pixels;
+        `noise_maps` the fixed maps of a generator with noise injection
+        (models.fixed_noise_maps)."""
         if latent_type not in ("z", "w", "w+"):
             raise ValueError(f"unknown latent type {latent_type!r}")
         self.coord, self.angle, self.noise = coord, angle, gumbel_noise
+        self.noise_kw = {} if noise_maps is None else {"noise": noise_maps}
         self.latent_type, self.num_styles = latent_type, num_styles
         self.mask = mask
         self.depth = coord.convert(depth, "depth", "depth_norm")
@@ -76,7 +80,7 @@ class Inversion:
 
     def __call__(self, G, latent: torch.Tensor, phase: torch.Tensor):
         w = self.styles(G, latent)
-        o = G(w, self.angle + phase, gumbel_noise=self.noise, input_w=True)
+        o = G(w, self.angle + phase, gumbel_noise=self.noise, input_w=True, **self.noise_kw)
         inv = tanh_to_sigmoid(o["image_orig"])
         depth = self.coord.convert(inv, "inv_depth_norm", "depth_norm")
         loss = multiscale_masked_loss(depth, self.depth, self.mask, level=2)
@@ -190,7 +194,8 @@ def main(argv: Optional[List[str]] = None, normal: Optional[Callable[[tuple], to
         latent = w_avg[:, None].repeat(1, num_styles, 1)
     phase = torch.zeros((1, 2, 1, 1), device=device)
     noise = torch.as_tensor(fixed_logistic_noise(H, W), device=device)
-    inv = Inversion(coord, angle, depth, mask, noise, args.latent_type, num_styles)
+    inv = Inversion(coord, angle, depth, mask, noise, args.latent_type, num_styles,
+                    fixed_noise_maps(G, args.seed, device))
     _sync(device)
     seconds["setup"] = time.perf_counter() - t0
 

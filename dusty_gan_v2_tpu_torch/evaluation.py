@@ -102,7 +102,8 @@ def collect_generated(
     """Generate n samples on angle's device. Features are kept for all of them (FPD and
     KPD read the full set), images and clouds only for the first `num_subsample`,
     which is all SWD, JSD and 1-NNA read. The ray-drop is deterministic: one logistic
-    noise map (1, 1, H, W) shared by every sample (drawn from `seed` unless given).
+    noise map (1, 1, H, W) shared by every sample (drawn from `seed` unless given). A
+    generator with noise injection draws its maps per sample from `seed`'s generator.
     `z` (n, z_dim) may be handed in; else it is drawn from `seed` batch by batch."""
     device = angle.device
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -118,7 +119,7 @@ def collect_generated(
             torch.randn((b, z_dim), generator=generator, device=device)
             if z is None else z[done : done + b].to(device)
         )
-        o = sample(G, zb, None, truncation_psi, fixed_logistic, pe_cache=pe_cache)
+        o = sample(G, zb, None, truncation_psi, fixed_logistic, generator, pe_cache=pe_cache)
         out = to_outputs(o["image"], coord, pointnet, num_points)
         if done < num_subsample:
             imgs.append(out.images)

@@ -12,8 +12,10 @@ paths (convert/jax_variables.py).
 
 Train mode (`train=True`) updates the w_avg and ema_var buffers in place and, with
 `aug_coords`, shifts the azimuth per sample inside the Fourier encodings and shifts the
-skip back in image space. Not ported: style mixing, noise injection, and
-rematerialized discriminator blocks.
+skip back in image space. With `use_noise`, each modulated conv's output takes a noise
+map (ops/noise.py) before its bias-act: `noise` holds, per block and conv, a fixed
+(1, 1, H, W) map or per-sample ones, drawn in block order (`draw_noise`). Not ported:
+style mixing and rematerialized discriminator blocks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..ops import (
     FourierFeature,
     FusedLeakyReLU,
     ModConv2d,
+    NoiseInjection,
     RingConv2d,
     blur_conv_fusable,
     blur_vh,
@@ -44,13 +47,14 @@ from ..ops import (
     resample_sumsq,
     sample_logistic,
 )
+from ..parallel.persample import PerSampleStream
 from .base import GeneratorMixin, reset_children
 from .dusty_v1 import apply_raydrop
 from .heads import resolve_act
 
 __all__ = [
     "MappingNetwork", "Head", "SynthesisBlock", "SynthesisNetwork", "Generator",
-    "downsample_angle", "build_pe_cache", "ResidualBlock", "Discriminator",
+    "downsample_angle", "build_pe_cache", "fixed_noise_maps", "ResidualBlock", "Discriminator",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -122,8 +126,6 @@ class SynthesisBlock(nn.Module):
         dtype: str = "float32",
     ):
         super().__init__()
-        if use_noise:
-            raise NotImplementedError("noise injection is not ported yet (use_noise=False)")
         if not use_pe:
             raise NotImplementedError("synthesis blocks without a Fourier PE are not ported yet")
         self.is_first = in_ch == 0
@@ -137,11 +139,19 @@ class SynthesisBlock(nn.Module):
         self.pe = FourierFeature(tuple(resolution), pe_type, pe_ch, tuple(pe_scale_offset))
         pe_in = fourier_out_ch(pe_ch, pe_type)
         self.conv1 = ModConv2d(in_ch + pe_in, mid_ch, mod_ch, use_bias=False, ema=True)
+        if use_noise:
+            self.noise1 = NoiseInjection(resolution)
         self.bias_act1 = FusedLeakyReLU(mid_ch)
         if not self.is_first:
             self.conv2 = ModConv2d(mid_ch, mid_ch, mod_ch, use_bias=False, ema=True)
+            if use_noise:
+                self.noise2 = NoiseInjection(resolution)
             self.bias_act2 = FusedLeakyReLU(mid_ch)
         self.head = Head(mid_ch, mod_ch, self.out_ch)
+
+    def noise_layers(self):
+        """The block's NoiseInjection modules in call order (none without use_noise)."""
+        return [getattr(self, n) for n in ("noise1", "noise2") if hasattr(self, n)]
 
     def pe_volume(self, angle: torch.Tensor) -> torch.Tensor:
         """This block's PE volume at its compute dtype (build_pe_cache)."""
@@ -156,8 +166,13 @@ class SynthesisBlock(nn.Module):
         pe_entry: Optional[torch.Tensor] = None,
         train: bool = False,
         azim_shift: Optional[torch.Tensor] = None,
+        noise: Sequence[torch.Tensor] = (),
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`noise`: one map per noise layer (noise_layers), none without use_noise."""
         ws = iter(ws)
+        layers = self.noise_layers()
+        if len(noise) != len(layers):
+            raise ValueError(f"{len(noise)} noise maps for {len(layers)} noise layers")
         x_op = x_stat = None
         if h is not None:
             h = h.to(self.dtype)
@@ -176,9 +191,13 @@ class SynthesisBlock(nn.Module):
         else:
             h_pe, pe_rot = self.pe(pe_angle, azim_shift=azim_shift, as_rotation=True, precomputed=pre)
         h = self.conv1(h, next(ws), x_shared=h_pe, x_op=x_op, train=train, shared_rotation=pe_rot, x_stat=x_stat)
+        if layers:
+            h = layers[0](h, noise[0])
         h = self.bias_act1(h)
         if not self.is_first:
             h = self.conv2(h, next(ws), train=train)
+            if layers:
+                h = layers[1](h, noise[1])
             h = self.bias_act2(h)
         o = self.head(h, next(ws), train=train)
         # skip accumulation in float32 (float64 stays), all heads stacked so one resample serves them
@@ -226,6 +245,7 @@ class SynthesisNetwork(nn.Module):
         self.aug_coords, self.aug_coords_blitting = aug_coords, aug_coords_blitting
         self.output_scale = output_scale
         self.compute_dtype = compute_dtype
+        self.use_noise = use_noise
         self.scales = (1,) + self.layers
         self.num_styles = len(self.scales) * 2
         ch = lambda i: min(ch_base << (len(self.layers) - i), ch_max)  # noqa: E731
@@ -264,6 +284,14 @@ class SynthesisNetwork(nn.Module):
             for i in range(n)
         ]
 
+    def draw_noise(self, stream) -> Optional[list]:
+        """Per block, the maps of its noise layers drawn from `stream` (a
+        PerSampleStream, or anything with its `normal(shape)`: (n, *shape) rows) in
+        block order, as the JAX blocks draw them; None without use_noise."""
+        if not self.use_noise:
+            return None
+        return [[layer.draw(stream) for layer in b.noise_layers()] for b in self.blocks()]
+
     def angle_pyramid(self, angle: torch.Tensor):
         down_plan = make_resample(down=2, window=(1, 3, 3, 1), ring=self.ring)
         pyramid = [angle]
@@ -279,13 +307,16 @@ class SynthesisNetwork(nn.Module):
 
     def forward(
         self, ws: torch.Tensor, angle: torch.Tensor, pe_cache=None, train: bool = False,
-        aug_shift: Optional[torch.Tensor] = None,
+        aug_shift: Optional[torch.Tensor] = None, noise: Optional[Sequence] = None,
     ) -> Dict[str, torch.Tensor]:
         """In train mode with aug_coords, `aug_shift` (B,) in [0, 1) is each sample's
         azimuth shift in turns: the encodings are shifted by it and the skip is shifted
-        back by as many pixels."""
+        back by as many pixels. With use_noise, `noise` holds each block's maps
+        (draw_noise's layout)."""
         if ws.shape[1] != self.num_styles:
             raise ValueError(f"{ws.shape[1]} styles != {self.num_styles}")
+        if (noise is None) == self.use_noise:
+            raise ValueError("noise maps go with use_noise, and only with it")
         shift = None
         if train and self.aug_coords:
             if aug_shift is None or tuple(aug_shift.shape) != (ws.shape[0],):
@@ -300,7 +331,8 @@ class SynthesisNetwork(nn.Module):
         h, skip, wi = None, None, 0
         for i, block in enumerate(self.blocks()):
             h, skip = block(
-                h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i], train, shift
+                h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i], train, shift,
+                () if noise is None else noise[i],
             )
             wi += 1 if i == 0 else 2
         if shift is not None:
@@ -352,19 +384,26 @@ class Generator(nn.Module, GeneratorMixin):
         train: bool = False,
         aug_shift: Optional[torch.Tensor] = None,
         input_w: bool = False,
+        noise: Optional[Sequence] = None,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D), angle (1, 2, H, W) -> dict of image, raydrop_logit, w,
         raydrop_mask, image_orig. With `input_w`, z is the styles (B, num_styles, D)
         and the mapping network does not run. Without `gumbel_noise` the logistic noise
         is drawn from `generator`, and so is the train-mode azimuth shift without
-        `aug_shift` (U[0, 1) per sample, drawn first)."""
+        `aug_shift` (U[0, 1) per sample, drawn first), and with use_noise the noise maps
+        without `noise` (per sample, after the shift; SynthesisNetwork.draw_noise)."""
         syn = self.synthesis_network
+        B = z.shape[0]
         if train and syn.aug_coords and aug_shift is None:
             if generator is None:
                 raise ValueError("pass aug_shift or a torch.Generator to draw it")
-            aug_shift = torch.rand(z.shape[0], generator=generator, device=z.device)
+            aug_shift = torch.rand(B, generator=generator, device=z.device)
+        if syn.use_noise and noise is None:
+            if generator is None:
+                raise ValueError("pass noise or a torch.Generator to draw it")
+            noise = syn.draw_noise(PerSampleStream(B, generator, z.device))
         w = self._style(self.mapping_network, z, syn.num_styles, truncation_psi, train, input_w)
-        o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift)
+        o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift, noise=noise)
         o["w"] = w
         if gumbel_noise is None:
             if generator is None:
@@ -377,6 +416,18 @@ class Generator(nn.Module, GeneratorMixin):
             raydrop_const=float(self.measurement_kwargs.get("raydrop_const", -1)),
             gumbel_temperature=float(self.measurement_kwargs.get("gumbel_temperature", 1.0)),
         )
+
+
+def fixed_noise_maps(G: nn.Module, seed: int, device) -> Optional[list]:
+    """For a generator with noise injection, one (1, 1, H, W) map per noise layer
+    (draw_noise's layout), drawn on the CPU from `seed`, so that every device gets the
+    same maps; None otherwise. The demos hold them fixed, as the JAX demos hold the
+    ray-drop noise."""
+    syn = G.synthesis_network
+    if not getattr(syn, "use_noise", False):
+        return None
+    maps = syn.draw_noise(PerSampleStream(1, torch.Generator().manual_seed(seed), "cpu"))
+    return [[m.to(device) for m in block] for block in maps]
 
 
 def build_pe_cache(G: nn.Module, angle: torch.Tensor):

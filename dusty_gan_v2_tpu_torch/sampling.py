@@ -111,11 +111,15 @@ def sample(
     gumbel_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     pe_cache=None,
+    noise=None,
 ) -> Dict[str, torch.Tensor]:
-    """One generator forward without autograd; returns the dict G returns."""
+    """One generator forward without autograd; returns the dict G returns. A
+    generator with noise injection takes `noise` (its maps: models.fixed_noise_maps'
+    layout) or draws them per sample from `generator`."""
+    kw = {} if noise is None else {"noise": noise}
     return G(
         z, angle, truncation_psi=truncation_psi, gumbel_noise=gumbel_noise,
-        generator=generator, pe_cache=pe_cache,
+        generator=generator, pe_cache=pe_cache, **kw,
     )
 
 

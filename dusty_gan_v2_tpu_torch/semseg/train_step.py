@@ -37,8 +37,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..convert import flatten_variables, flax_msgpack
+from ..convert.torch_weights import convert_squeezeseg_state, load_reference_state
 from ..parallel import fold_seed, is_chief
 from ..parallel.mesh import barrier, pmean_, pmean_flat_, psum_
+from ..training.checkpoint import checkpoint_format
 from ..utils.config import Config
 from .loss import cross_entropy, focal_loss, masked_seg_loss
 
@@ -162,7 +165,21 @@ def save_checkpoint(path: str, cfg, model: torch.nn.Module, step: int) -> None:
 
 
 def load_checkpoint(path: str) -> Tuple[Config, Dict[str, Any]]:
-    """(cfg, payload) of a file save_checkpoint wrote, tensors on the CPU."""
+    """(cfg, payload) of a file save_checkpoint wrote, of the JAX CLI's msgpack
+    checkpoint (train_semseg.py: {"cfg_yaml": JSON text, "step", "params",
+    "batch_stats"} as flax state dicts) or of a reference `.pth` ({"cfg", "model": a
+    SqueezeSeg state_dict}, converted by convert/torch_weights.py for cfg.arch.name);
+    tensors on the CPU, "params" and "batch_stats" flat state_dicts."""
+    if path.endswith(".pth"):
+        ckpt = load_reference_state(path)
+        cfg = ckpt["cfg"]
+        params, stats = convert_squeezeseg_state(ckpt["model"], cfg.arch.name)
+        return cfg, {"params": params, "batch_stats": stats}
+    if checkpoint_format(path) == "msgpack":
+        payload = flax_msgpack.load(path)
+        flat = lambda tree: dict(flatten_variables({"params": tree}))  # noqa: E731
+        return Config(json.loads(payload["cfg_yaml"])), {
+            "step": int(payload["step"]), "params": flat(payload["params"]), "batch_stats": flat(payload["batch_stats"])}
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return Config(json.loads(payload["cfg"])), payload
 

@@ -1,5 +1,6 @@
 """Single-file checkpoints of the training state (counterpart of the msgpack route of
-dusty_gan_v2_tpu/training/checkpoint.py).
+dusty_gan_v2_tpu/training/checkpoint.py). `load_checkpoint` reads the port's files and
+the JAX CLI's, telling them apart by their first bytes (`checkpoint_format`).
 
 One file written by torch.save, atomically (a temporary file, then os.replace):
 
@@ -12,8 +13,19 @@ One file written by torch.save, atomically (a temporary file, then os.replace):
 It holds only dicts, tensors (on the CPU), strs and ints, so torch.load(weights_only=True)
 reads it. Adam's hyperparameters are not stored: they follow from the config when the
 Trainer is built. Under data parallelism every rank holds the same state: the chief
-writes the file, then every rank passes a barrier, and every rank loads it. Orbax's
-sharded directories (the JAX CLI's --ckpt_backend orbax) are not ported.
+writes the file, then every rank passes a barrier, and every rank loads it.
+
+The JAX CLI's file is flax msgpack (convert/flax_msgpack.py):
+
+    {"cfg_yaml": the config as YAML text, "step": images seen (int64 scalar),
+     "angle": (1, 2, H, W) float32, "state": flax's state dict of a GANTrainState}
+
+Read without a template, its "state" comes back as G, G_ema and D state_dicts with the
+ADA state, pl_ema and the iteration (the port's payload without the optimizers); with a
+template, convert/jax_variables.py::load_jax_train_state carries everything over, Adam's
+moments included, so train_gan --resume continues a JAX run. `save_jax_checkpoint`
+writes that format. Orbax's sharded directories (the JAX CLI's --ckpt_backend orbax)
+are tensorstore's formats and are not read.
 """
 
 from __future__ import annotations
@@ -22,14 +34,21 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import yaml
 
 from ..augment.ada import AdaState
+from ..convert import flax_msgpack
+from ..convert.jax_variables import jax_train_state_dict, jax_variables_to_state_dict, load_jax_train_state
 from ..parallel.mesh import barrier, is_chief
 from ..utils.config import Config
 from .train_state import TrainState
 
-__all__ = ["save_checkpoint", "load_checkpoint", "state_payload", "load_state_payload"]
+__all__ = [
+    "save_checkpoint", "load_checkpoint", "state_payload", "load_state_payload", "checkpoint_format",
+    "save_jax_checkpoint",
+]
 
 _ADA_FIELDS = ("p", "sign_cum", "n_pred_cum")
 
@@ -85,12 +104,65 @@ def save_checkpoint(path: str, cfg, state: TrainState, angle: torch.Tensor, num_
     barrier()
 
 
+def checkpoint_format(path: str) -> str:
+    """"torch" for a torch.save file (a zip archive, or a legacy pickle), "msgpack" for a
+    flax msgpack file (a map at the top); else ValueError."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head.startswith(b"PK\x03\x04") or (len(head) > 1 and head[0] == 0x80 and 2 <= head[1] <= 5):
+        return "torch"
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return "msgpack"
+    raise ValueError(f"{path}: neither a torch.save file nor a flax msgpack file (first bytes {head!r})")
+
+
+def _jax_payload_state(js: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX state dict as the port's payload, without the optimizers."""
+    return {
+        "G": jax_variables_to_state_dict({"params": js["params_G"], "stats": js["stats_G"], "consts": js["consts_G"]}),
+        "G_ema": jax_variables_to_state_dict(
+            {"params": js["params_G_ema"], "stats": js["stats_G_ema"], "consts": js["consts_G"]}),
+        "D": jax_variables_to_state_dict({"params": js["params_D"]}),
+        "ada": {f: js["ada"][f].float().reshape(()) for f in _ADA_FIELDS},
+        "pl_ema": js["pl_ema"].float().reshape(()),
+        "iteration": int(js["step"]),
+    }
+
+
 def load_checkpoint(path: str, state_template: Optional[TrainState] = None) -> Tuple[Config, Any, torch.Tensor, int]:
-    """(cfg, state, angle, num_imgs). With a template the state is loaded into it (and
-    returned); else `state` is the file's state dict, on the CPU."""
+    """(cfg, state, angle, num_imgs) of a port or JAX CLI checkpoint file. With a
+    template the state is loaded into it (and returned); else `state` is the file's
+    state dict, on the CPU (a JAX file's without the optimizers)."""
+    if checkpoint_format(path) == "msgpack":
+        payload = flax_msgpack.load(path)
+        if "cfg_yaml" not in payload or "state" not in payload:
+            raise ValueError(f"{path}: a msgpack file without cfg_yaml and state is not a GAN checkpoint")
+        cfg = Config(yaml.safe_load(payload["cfg_yaml"]))
+        js = payload["state"]
+        state = _jax_payload_state(js) if state_template is None else load_jax_train_state(state_template, js)
+        return cfg, state, payload["angle"].float(), int(payload["step"])
     payload = torch.load(path, map_location="cpu", weights_only=True)
     cfg = Config(json.loads(payload["cfg"]))
     state = payload["state"]
     if state_template is not None:
         state = load_state_payload(state_template, state)
     return cfg, state, payload["angle"], int(payload["step"])
+
+
+def save_jax_checkpoint(path: str, cfg, state: TrainState, angle: torch.Tensor, num_imgs: int) -> None:
+    """Write the JAX CLI's single-file format (dusty_gan_v2_tpu/training/checkpoint.py::
+    save_checkpoint), which its load_checkpoint and this module's read; on the chief,
+    atomically, then a barrier as save_checkpoint."""
+    if is_chief():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        payload = {
+            "cfg_yaml": yaml.safe_dump(cfg.to_dict() if isinstance(cfg, Config) else cfg),
+            "step": np.int64(num_imgs),
+            "angle": angle.detach().cpu(),
+            "state": jax_train_state_dict(state),
+        }
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            flax_msgpack.dump(payload, f)
+        os.replace(tmp, path)
+    barrier()

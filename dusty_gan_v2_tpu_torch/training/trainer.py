@@ -302,11 +302,15 @@ class Trainer:
 
     def _g_draws(self, G, st, train: bool):
         """The draws of one generator forward from st, in the JAX step's order: the
-        azimuth shift (train mode with aug_coords), the logistic ray-drop noise (where G
-        has a measurement model). An arch without them draws nothing."""
-        shift = st.uniform() if train and G.synthesis_network.aug_coords else None
-        noise = st.logistic((1, *self.resolution)) if G.has_raydrop else None
-        return {"gumbel_noise": noise, "aug_shift": shift}
+        azimuth shift (train mode with aug_coords), the noise maps of each block (with
+        use_noise), the logistic ray-drop noise (where G has a measurement model). An
+        arch without them draws nothing."""
+        syn = G.synthesis_network
+        draws = {"aug_shift": st.uniform() if train and syn.aug_coords else None}
+        if getattr(syn, "use_noise", False):
+            draws["noise"] = syn.draw_noise(st)
+        draws["gumbel_noise"] = st.logistic((1, *self.resolution)) if G.has_raydrop else None
+        return draws
 
     def _fake(self, state: TrainState, st) -> torch.Tensor:
         """One train-mode generator forward on draws from st: z, then the forward's own."""

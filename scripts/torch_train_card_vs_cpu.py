@@ -6,8 +6,9 @@ three cuDNN settings, each of which takes the card along a trajectory of its own
 
 For cuDNN on (the default), cuDNN off and cuDNN with benchmark on, it runs the fp32 B=4
 R1 iteration (32) and the PL iteration (36, pl 2) on the card and on the CPU, and prints
-whether the comparison passed, the raydrop decisions each fake took the other way, and
-the error of D's output on each fake. Needs one CUDA card; about two minutes.
+whether the comparison passed, how many of the card's replayed decisions (raydrop masks,
+leaky-ReLU signs) each CPU run would have taken the other way, and the largest error of
+D's input on the fakes. Needs one CUDA card; about two minutes.
 """
 
 import subprocess
@@ -33,7 +34,7 @@ def main():
         for kw in ({}, {"it": 36, "pl": 2, "label": "cli-pl"}):
             try:
                 r = chip_smoke.train_card_vs_cpu(dev, **kw)
-                print("PASS", enabled, benchmark, kw, r["raydrop_flips"], r["y_fake_err_per_sample"], flush=True)
+                print("PASS", enabled, benchmark, kw, r["decisions_own_differ"], r["fake_max_abs_err"], flush=True)
             except AssertionError as e:
                 print("FAIL", enabled, benchmark, kw, repr(e)[:600], flush=True)
 

@@ -49,7 +49,8 @@ LUT = Path(__file__).resolve().parent.parent / "data" / "coords" / "kitti_raw.np
 def _seeded_variables(G, angle, seed):
     """JAX init for the tree and the Fourier banks; every param and stat from numpy."""
     init = lambda a: G.init(  # noqa: E731
-        {"params": jax.random.PRNGKey(0), "gumbel": jax.random.PRNGKey(1)}, jnp.zeros((2, 16)), a
+        {"params": jax.random.PRNGKey(0), "gumbel": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2)},
+        jnp.zeros((2, 16)), a
     )
     v = jax.jit(init)(angle)
     v = jax.tree_util.tree_map(np.asarray, v)
