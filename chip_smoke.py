@@ -184,6 +184,25 @@
    fp32 B=4 card-vs-CPU step with noise injection without and with PL, and sampling
    fp32 B=128 with the maps drawn per sample against the same G without noise.
 
+16. options: the JAX package's remaining options. (a) The loader's C++ projection
+   (datasets/native.py, built by g++ in phase 2): host ms a frame against the numpy
+   projection on phase 10's kind of fabricated 64 x 2048 frames and the cells where the
+   two differ; train_gan on configs/gans/dusty_v1.yaml (its loader uncached) over 16
+   iterations, its imgs/s beside phase 12's bare step. (b) configs/gans/dusty_v2.yaml's G
+   at full width with a block without a Fourier PE (layers 2, 2, 2, 2, 1), on the logscale
+   and on the random_2 basis, each with style mixing on injected draws: fp32 B=8 card
+   against CPU, decisions replayed, 1e-4 or twice one ulp's shift, K1 11 / 9 / 9 a
+   forward; phase 9's fp32 B=4 card-vs-CPU step with G and D remat (the recomputed
+   forwards take their first forwards' decisions) at its bars, and on the card the remat
+   step against the plain one from one state on one set of draws at the same bars, or
+   twice a second plain step's difference where larger (K1 / K4 / K5 of both);
+   the bf16 B=128 steady step without and with remat (ms, peak GiB, launches). (c)
+   DiffAugment at B=128 on the card against the CPU on the card's draws (1e-6 of the
+   largest magnitude).
+   (d) sim2real_w_gan_noise_dustyv2_bf16.yaml's SqueezeSegV2 with the reduce_window pool
+   and two-pass BN, and with the shift pool: phase 11's float64 card-vs-CPU step each;
+   the bf16 B=120 step's ms in each form beside the default.
+
 Phases 11 and 13 hold the semseg step and the bird's-eye view card against CPU in
 float64: in float32 two correct runs part there by rounding amplified through ReLU
 masks, max-pool choices, small-variance BatchNorm and nearest-neighbour ties, as far as
@@ -213,7 +232,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dusty_gan_v2_tpu_torch import kernels
-from dusty_gan_v2_tpu_torch.datasets import InfiniteSampler, KITTIRaw, Prefetcher
+from dusty_gan_v2_tpu_torch.datasets import InfiniteSampler, KITTIRaw, Prefetcher, native
 from dusty_gan_v2_tpu_torch.evaluation import collect_generated, evaluate
 from dusty_gan_v2_tpu_torch.metrics import (
     build_pointnet, earth_mover_distance, emd_cost, emd_cuda, fps_cuda, furthest_point_sampling,
@@ -428,12 +447,23 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc for each CUDA source and g++ for the loader's projection (datasets/native.py),
+    all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    reports = kernels.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)
+        reports = kernels.build_all()
+        native_path = host_lib.result()
     for name in kernels.SOURCES:
         kernels.library(name)
+    native.library()
     seconds = time.perf_counter() - t0
-    log("build", f"{len(kernels.SOURCES)} kernels built in {seconds:.2f} s into {kernels.BUILD_DIR}")
+    gxx = subprocess.run([native._cxx(), "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    reports["projection.cpp"] = f"{gxx}; {native_path.name}"
+    log("build", f"{len(kernels.SOURCES)} kernels and the loader's projection ({gxx}, {' '.join(native.CXX_FLAGS)}) "
+        f"built in {seconds:.2f} s into {kernels.BUILD_DIR}")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -1376,13 +1406,20 @@ class DecisionTape:
     own and counts where its own would have differed. Two runs compared so part by
     rounding only: a pixel within rounding of a threshold cannot send them down two
     branches, and their differences are held at continuous bars. Decisions recorded in
-    several processes join along the batch (`concat`)."""
+    several processes join along the batch (`concat`).
+
+    Under remat (models/dusty_v2.py::remat) a block's forward runs again inside the
+    backward (once per backward that reaches it: twice for R1). Such a recompute takes
+    the decisions of the block's first forward: the card's run records nothing there (its
+    kernels decide alike on the same inputs), and a replaying run looks its first
+    forward's decision up by the pre-activation, which the recompute repeats bit for bit,
+    and neither consumes a tape entry nor counts a difference."""
 
     KINDS = ("raydrop", "leaky_relu")
 
     def __init__(self, tape=None):
         self.tape = [] if tape is None else tape
-        self.pos, self.differ = 0, dict.fromkeys(self.KINDS, 0)
+        self.pos, self.differ, self.seen, self.recomputed = 0, dict.fromkeys(self.KINDS, 0), [], 0
 
     @staticmethod
     def concat(tapes, device="cpu"):
@@ -1417,9 +1454,25 @@ class DecisionTape:
         acc = torch.promote_types(x.dtype, torch.float32)
         return x.to(acc) + bias.to(x.dtype).reshape((1, -1) + (1,) * (x.ndim - 2)).to(acc)
 
+    @staticmethod
+    def _recomputing():
+        """Inside a backward pass, where the only forwards are remat's recomputes."""
+        return torch._C._current_graph_task_id() != -1
+
+    def _first_forward_mask(self, pre: torch.Tensor) -> torch.Tensor:
+        for seen, mask in self.seen:
+            if seen.shape == pre.shape and torch.equal(seen, pre):
+                self.recomputed += 1
+                return mask
+        raise AssertionError(f"a recomputed leaky ReLU of {tuple(pre.shape)} matches no first forward's input")
+
     def _act(self, x, bias, negative_slope, scale):
         pre = self._pre(x, bias)
-        mask = self._pop("leaky_relu", pre.detach() >= 0)
+        if self._recomputing():
+            mask = self._first_forward_mask(pre.detach())
+        else:
+            mask = self._pop("leaky_relu", pre.detach() >= 0)
+            self.seen.append((pre.detach(), mask))
         return (torch.where(mask, pre, pre * negative_slope) * scale).to(x.dtype)
 
     @contextlib.contextmanager
@@ -1444,19 +1497,25 @@ class DecisionTape:
             return gumbel(logits, noise, temperature, straight_through)
 
         def rec_act(x, bias, negative_slope=0.2, scale=SQRT2):
-            with torch.no_grad():
-                self._push("leaky_relu", self._pre(x, bias) >= 0)
+            if self._recomputing():
+                self.recomputed += 1
+            else:
+                with torch.no_grad():
+                    self._push("leaky_relu", self._pre(x, bias) >= 0)
             return act(x, bias, negative_slope, scale)
 
         def rec_act_resample(x, bias, plan, negative_slope=0.2, scale=SQRT2):
-            with torch.no_grad():
-                self._push("leaky_relu", self._pre(x, bias) >= 0)
+            if self._recomputing():
+                self.recomputed += 1
+            else:
+                with torch.no_grad():
+                    self._push("leaky_relu", self._pre(x, bias) >= 0)
             return act_resample(x, bias, plan, negative_slope, scale)
 
         return self._patched(rec_gumbel, rec_act, rec_act_resample)
 
     def replay(self):
-        self.pos, self.differ = 0, dict.fromkeys(self.KINDS, 0)
+        self.pos, self.differ, self.seen, self.recomputed = 0, dict.fromkeys(self.KINDS, 0), [], 0
 
         def rep_gumbel(logits, noise, temperature=1.0, straight_through=True):
             soft = torch.sigmoid((logits + noise) / temperature)
@@ -1473,6 +1532,7 @@ class DecisionTape:
 
     def check_used(self):
         assert self.pos == len(self.tape), f"the run took {self.pos} of {len(self.tape)} recorded decisions"
+        self.seen = []
 
 
 def train_batch(tr, seed):
@@ -1580,7 +1640,7 @@ def seed_noise_weights(G, seed):
                 prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1)
 
 
-def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_noise=False):
+def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_noise=False, remat=False):
     """One fp32 B=4 step on the card and on the CPU from the same state (two steps old, so
     Adam's moments are populated) on the same draws: at iteration 32 R1 + ADA + warmup;
     with `pl` > 0 (lazy pl 4) iteration 36 takes PL + ADA + warmup. With `use_noise` the
@@ -1594,12 +1654,16 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_no
     where that is larger. A CPU run that takes the card's gradients into its optimizer
     steps holds each phase on the state the card's earlier phases made, every value at
     1e-4. `config` names the float32 configs/gans/*.yaml (B=32, lazy gp 16, ada 4 in
-    each)."""
+    each). With `remat` G's synthesis blocks and D's residual blocks are rematerialized
+    (the tape gives the recomputes their first forwards' decisions)."""
     cfg = train_cfg(config)
     cfg["training"]["batch_size"] = 4
     cfg["training"]["loss"]["pl"] = pl
     if use_noise:
         cfg["model"]["generator"]["synthesis_kwargs"]["use_noise"] = True
+    if remat:
+        cfg["model"]["generator"]["synthesis_kwargs"]["remat"] = True
+        cfg["model"]["discriminator"]["layer_kwargs"]["remat"] = True
     # it 32: R1 (every 16), ADA (every 4), warmup (B=4: 50,000 iterations); 36: PL (every 4), no R1
     tr = Trainer(cfg, device=dev, seed=7)
     st = tr.init_state(seed=3)
@@ -1710,9 +1774,10 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_no
     upd_err = {n: update_err(new, new_cpu, old, ks) for n, ks in keys.items()}
     upd_ulp = {n: update_err({k: new_ulp[k] - old_ulp[k] + old[k] for k in ks}, new_cpu, old, ks) for n, ks in keys.items()}
     n_decisions = {k: sum(1 for e in tape.tape if e[0] == k) for k in DecisionTape.KINDS}
-    log(label, f"card vs CPU, fp32 B=4 step at iteration {it}{' with noise injection' if use_noise else ''} (CPU "
-        f"steps {cpu_s:.1f} s; the card's decisions replayed, {n_decisions} tensors of them, elements where the "
-        f"run's own would differ {differ}): losses (relative) and D outputs (abs) {value_err}, bars {value_bar} "
+    log(label, f"card vs CPU, fp32 B=4 step at iteration {it}{' with noise injection' if use_noise else ''}"
+        f"{' with G and D remat' if remat else ''} (CPU steps {cpu_s:.1f} s; the card's decisions replayed, "
+        f"{n_decisions} tensors of them, {tape.recomputed} recomputed sites given their first forwards' in the "
+        f"last CPU run, elements where the run's own would differ {differ}): losses (relative) and D outputs (abs) {value_err}, bars {value_bar} "
         f"(1e-4, PL's {PL_BAR}, or twice the shift of the CPU against itself with every weight one ulp up, "
         f"{one_ulp_value}); D's input on the fakes, max abs against the CPU's {fake_err}; "
         f"CPU fed the card's gradients {fed_value_err} (bar 1e-4); R1 penalty {penalty_err:.3g} relative and phase "
@@ -1726,7 +1791,7 @@ def train_card_vs_cpu(dev, it=32, pl=0, label="train", config="dusty_v2", use_no
     assert penalty_err <= 1e-2 and all(max(grad_err[k], fed_grad_err[k]) <= grad_bar[k] for k in grad_err), \
         (penalty_err, grad_err, fed_grad_err, grad_bar)
     assert buf_err <= 1e-4 and ada_err <= 1e-4 and adam_err <= 1e-4 and ema_ok, (buf_err, ada_err, adam_errs, ema_ok)
-    return {"iteration": it, "use_noise": use_noise, "value_err": value_err, "value_bar": value_bar,
+    return {"iteration": it, "use_noise": use_noise, "remat": remat, "value_err": value_err, "value_bar": value_bar,
             "one_ulp_value_shift": one_ulp_value, "fake_max_abs_err": fake_err, "decisions": n_decisions,
             "decisions_own_differ": differ, "fed_value_err": fed_value_err,
             "penalty_err": penalty_err, "grad_err": grad_err, "fed_grad_err": fed_grad_err,
@@ -2202,7 +2267,7 @@ def grads_dict(model):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def semseg_card_vs_cpu(dev, root):
+def semseg_card_vs_cpu(dev, root, arch=None, label="semseg"):
     """One float64 B=4 step at 64 x 512 on injected dropout masks, on the card and on the
     CPU from the same weights; a third run on the CPU with every weight one ulp up gives
     each value's rounding sensitivity. The model's ReLU masks and max-pool choices, and
@@ -2211,10 +2276,12 @@ def semseg_card_vs_cpu(dev, root):
     runs; in float64 the two runs part by rounding far below the bars, so the gate holds
     by construction (this path launches none of K1-K5, and the float32 and bfloat16 steps
     run in the phase's command lines and rates). Then two more card steps held to the SGD
-    chain's formula on the card's own gradients."""
+    chain's formula on the card's own gradients. `arch` sets cfg.arch keys (the pool form,
+    the BN moments)."""
     from dusty_gan_v2_tpu_torch.cli.train_semseg import build_model
 
     cfg = semseg_cfg(root, "float32")
+    cfg.arch.update(arch or {})
     model = build_model(cfg)
     model.dtype = torch.float64  # the compute policy in float64, on float64 copies of the weights
     model.double()
@@ -2236,8 +2303,8 @@ def semseg_card_vs_cpu(dev, root):
     errs = {k: rel_max_err(runs["card"][k], runs["cpu"][k]) for k in runs["card"]}
     one_ulp = {k: rel_max_err(runs["ulp"][k], runs["cpu"][k]) for k in runs["card"]}
     bars = {k: max(1e-2 if k == "grads" else 1e-4, 2 * one_ulp[k]) for k in errs}
-    log("semseg", f"card vs CPU, float64 B=4 64x512 step 1 (relative to the largest magnitude): {errs}; one ulp in "
-        f"the weights on the CPU: {one_ulp}; bars {bars}")
+    log(label, f"card vs CPU, float64 B=4 64x512 step 1{f' with {arch}' if arch else ''} (relative to the largest "
+        f"magnitude): {errs}; one ulp in the weights on the CPU: {one_ulp}; bars {bars}")
     assert all(errs[k] <= bars[k] for k in errs), (errs, bars)
 
     # the card's update is the chain's formula on its own gradients: clip to the global
@@ -2256,7 +2323,7 @@ def semseg_card_vs_cpu(dev, root):
         tr_dev.update(step)
         ref = {k: p_old[k] - tr_dev.lr(step) * buf[k] for k in d}
         update_err.append(rel_max_err({k: p.detach().double() for k, p in model.named_parameters()}, ref))
-    log("semseg", f"card's SGD updates against the chain's formula on its gradients: {update_err} (bar 1e-6; "
+    log(label, f"card's SGD updates against the chain's formula on its gradients: {update_err} (bar 1e-6; "
         f"global norms clipped to {t.max_grad_norm})")
     assert all(e <= 1e-6 for e in update_err), update_err
     return {"errors": errs, "one_ulp": one_ulp, "bars": bars, "update_err": update_err}
@@ -2565,14 +2632,16 @@ def other_bare_steps(name, dev):
     return tr, st, {"steps": steps, "rates": rates}
 
 
-def other_train_gan(dev, tmp):
-    """train_gan on dusty_v1.yaml (B=32) over OTHER_ITERS iterations on the fabricated tree,
-    then test_gan on its checkpoint over CLI_METRICS at 64 + 64 clouds."""
-    from dusty_gan_v2_tpu_torch.cli import test_gan, train_gan
+def dusty_v1_train_gan(dev, tmp, log_dir, label):
+    """train_gan on dusty_v1.yaml (B=32, its loader uncached) over OTHER_ITERS iterations
+    on the fabricated tree under tmp: the run's seconds, imgs/s over OTHER_WINDOW, launches
+    (K1 only) and stats rows. Returns (record, batch size)."""
+    from dusty_gan_v2_tpu_torch.cli import train_gan
     from dusty_gan_v2_tpu_torch.utils.config import load_config, save_config
 
     cfg = load_config(str(Path(__file__).resolve().parent / "configs" / "gans" / "dusty_v1.yaml"))
     cfg.dataset.root, cfg.dataset.prune_missing = str(tmp / "kitti_raw"), True
+    assert cfg.dataset.get("cache") is None  # the config's uncached loader: each frame projected at each read
     ck = cfg.training.checkpoint
     ck.save_stats, ck.save_model, ck.validation = 4, OTHER_ITERS, 10**9
     B = int(cfg.training.batch_size)
@@ -2583,7 +2652,7 @@ def other_train_gan(dev, tmp):
     fps_cuda.launches = emd_cuda.launches = 0
     with StepWindow(*OTHER_WINDOW) as window:
         t0 = time.perf_counter()
-        _, state = train_gan.main(["--config", str(tmp / "dusty_v1.yaml"), "--log_dir", str(tmp / "logs_v1"),
+        _, state = train_gan.main(["--config", str(tmp / "dusty_v1.yaml"), "--log_dir", str(log_dir),
                                    "--num_workers", "4", "--device", str(dev)])
         torch.cuda.synchronize()
         rec["train_gan_s"] = time.perf_counter() - t0
@@ -2592,8 +2661,8 @@ def other_train_gan(dev, tmp):
             "fused_chain_bwd": 0, "fps": 0, "emd": 0}
     n_win = OTHER_WINDOW[1] - OTHER_WINDOW[0] + 1
     rec["cli_imgs_per_s"] = 1e3 * B * n_win / window.ms
-    rows = [json.loads(line) for line in (tmp / "logs_v1" / "stats.jsonl").read_text().splitlines()]
-    log("other", f"train_gan dusty_v1.yaml, fp32 B={B}, iterations 1-{OTHER_ITERS}: {rec['train_gan_s']:.2f} s; "
+    rows = [json.loads(line) for line in (log_dir / "stats.jsonl").read_text().splitlines()]
+    log(label, f"train_gan dusty_v1.yaml, fp32 B={B}, iterations 1-{OTHER_ITERS}: {rec['train_gan_s']:.2f} s; "
         f"iterations {OTHER_WINDOW[0]}-{OTHER_WINDOW[1]} {window.ms / n_win:.3f} ms an iteration = "
         f"{rec['cli_imgs_per_s']:.1f} imgs/s (loader uncached, as the config sets); launches {launches} (want "
         f"{want}); stats rows {rows}")
@@ -2604,7 +2673,15 @@ def other_train_gan(dev, tmp):
     rec["launches"], rec["stats"] = launches, rows
     del state
     torch.cuda.empty_cache()
+    return rec, B
 
+
+def other_train_gan(dev, tmp):
+    """train_gan on dusty_v1.yaml (B=32) over OTHER_ITERS iterations on the fabricated tree,
+    then test_gan on its checkpoint over CLI_METRICS at 64 + 64 clouds."""
+    from dusty_gan_v2_tpu_torch.cli import test_gan
+
+    rec, B = dusty_v1_train_gan(dev, tmp, tmp / "logs_v1", "other")
     ckpt = tmp / "logs_v1" / "models" / f"checkpoint_{OTHER_ITERS * B:010d}.ckpt"
     out = tmp / "scores_v1.json"
     fps_cuda.launches = emd_cuda.launches = 0
@@ -3615,6 +3692,289 @@ def phase_interop(dev, smi):
     return rec
 
 
+# phase 16: the JAX package's remaining options, at the full width of configs/gans/dusty_v2.yaml
+# (64 x 512, ch_base 32, ch_max 512, float32, TF32 off) with seeded weights
+OPTION_GS = {"no_pe": {"layers": (2, 2, 2, 2, 1)}, "logscale": {"pe_type": "logscale"},
+             "random_2": {"pe_type": "random_2"}}
+OPTION_K1 = {"no_pe": 11, "logscale": 9, "random_2": 9}  # 1 + 2 per block after the first
+OPTION_CROSSOVER = 5  # style mixing's n: the first 5 styles from z, the rest from the partner
+POOL_FORMS = {"separable, one-pass BN (default)": {}, "reduce_window": {"pool_impl": "reduce_window"},
+              "shift": {"pool_impl": "shift"}, "two-pass BN": {"bn_one_pass": False}}
+
+
+def options_loader(dev, tmp, bare_step_rate):
+    """(a) The loader's projection: host ms per frame of the C++ library against the numpy
+    projection on the same 32 fabricated frames, the cells where the two differ; train_gan
+    on dusty_v1.yaml (uncached loader) over 16 iterations, its imgs/s beside phase 12's
+    bare step."""
+    from dusty_gan_v2_tpu_torch.datasets.kitti import project_points_to_image
+
+    ds = KITTIRaw(str(tmp / "kitti_raw"), "train", prune_missing=True)
+    scans = [np.fromfile(p, dtype=np.float32).reshape(-1, 4) for p in ds.datalist]
+    t0 = time.perf_counter()
+    nat = [native.project_points_to_image_native(p, 64, 2048, 1.45, 80.0) for p in scans]
+    t1 = time.perf_counter()
+    plain = [project_points_to_image(p, 64, 2048, 1.45, 80.0) for p in scans]
+    t2 = time.perf_counter()
+    cells = sum(a.shape[0] * a.shape[1] for a in nat)
+    occupied = sum(int((a[..., 4] > 0).sum()) for a in plain)
+    point = [0, 1, 2, 3, 5]
+    rec = {
+        "frames": len(scans), "cells": cells, "occupied_cells": occupied,
+        "native_ms_per_frame": 1e3 * (t1 - t0) / len(scans), "numpy_ms_per_frame": 1e3 * (t2 - t1) / len(scans),
+        "cells_differ": sum(int((a != b).any(-1).sum()) for a, b in zip(nat, plain)),
+        "cells_point_or_mask_differ": sum(int((a[..., point] != b[..., point]).any(-1).sum()) for a, b in zip(nat, plain)),
+        "depth_max_abs_diff": max(float(np.abs(a[..., 4] - b[..., 4]).max()) for a, b in zip(nat, plain)),
+        "depth_max_ulps": max(float((np.abs(a[..., 4] - b[..., 4]) / np.spacing(b[..., 4])).max()) for a, b in zip(nat, plain)),
+    }
+    log("options", f"(a) the loader's projection, {len(scans)} fabricated 64 x 2048 frames: C++ "
+        f"{rec['native_ms_per_frame']:.3f} ms a frame, numpy {rec['numpy_ms_per_frame']:.3f}; of {cells} cells "
+        f"({occupied} hit) {rec['cells_differ']} differ, {rec['cells_point_or_mask_differ']} in the winning point or "
+        f"the mask, the rest in the depth alone (max {rec['depth_max_abs_diff']:.3g} m, "
+        f"{rec['depth_max_ulps']:.0f} ulps: sqrt(x*x + y*y + z*z) against numpy's norm)")
+    assert all(np.isfinite(a).all() and a.shape == (64, 2048, 6) for a in nat)
+    assert rec["cells_point_or_mask_differ"] <= 1e-3 * cells and rec["depth_max_abs_diff"] <= 1e-3, rec
+    rec["train_gan"], _ = dusty_v1_train_gan(dev, tmp, tmp / "logs_options", "options")
+    rec["train_gan"]["bare_step_imgs_per_s"] = bare_step_rate
+    log("options", f"(a) train_gan dusty_v1.yaml through the C++ projection: {rec['train_gan']['cli_imgs_per_s']:.1f} "
+        f"imgs/s over iterations {OTHER_WINDOW[0]}-{OTHER_WINDOW[1]}, phase 12's bare step {bare_step_rate:.1f}")
+    return rec
+
+
+def option_forward_gates(dev):
+    """(b) Gs at full width with a block without a Fourier PE, on the logscale and on the
+    random_2 basis, each with style mixing (injected partner z and crossover): fp32 B=8 at
+    psi 0.7 on the card against the CPU, the card's decisions replayed, each output within
+    1e-4 or twice the shift one ulp in the weights makes on the CPU; K1 per forward."""
+    angle = load_angle()
+    rec = {}
+    for name, syn in OPTION_GS.items():
+        cfg = full_gen_cfg()
+        cfg["synthesis_kwargs"].update(syn)
+        gen = torch.Generator().manual_seed(31)
+        G_cpu = build_generator(cfg, device="cpu", seed=0)
+        with torch.no_grad():  # as after training: biases and w_avg away from zero
+            for k, prm in G_cpu.named_parameters():
+                if k.endswith("bias"):
+                    prm.normal_(0.0, 0.1, generator=gen)
+            G_cpu.w_avg.copy_(G_cpu.mapping_network(torch.randn(256, 512, generator=gen)).mean(0, keepdim=True))
+        G_ulp = copy.deepcopy(G_cpu)
+        with torch.no_grad():
+            for prm in G_ulp.parameters():
+                prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+        G = copy.deepcopy(G_cpu).to(dev)
+        z, z2 = (torch.randn(B_SLICE, 512, generator=gen) for _ in range(2))
+        n = torch.tensor(OPTION_CROSSOVER)
+        gumbel = sample_logistic(gen, (B_SLICE, 1, 64, 512))
+
+        def fwd(net, d):
+            with torch.no_grad():
+                return net(z.to(d), angle.to(d), truncation_psi=0.7, gumbel_noise=gumbel.to(d), style_mixing=True,
+                           mixing=(z2.to(d), n.to(d)))
+
+        tape = DecisionTape()
+        read_and_reset(CHAIN_COUNTERS)
+        with tape.record():
+            o = fwd(G, dev)
+        torch.cuda.synchronize()
+        k1 = read_and_reset(CHAIN_COUNTERS)
+        runs, differ = {}, {}
+        for run, net in (("cpu", G_cpu), ("cpu_ulp", G_ulp)):
+            with tape.replay():
+                runs[run] = fwd(net, "cpu")
+            tape.check_used()
+            differ[run] = dict(tape.differ)
+        keys = ("image", "image_orig", "raydrop_logit")
+        errs = {k: float((o[k].cpu() - runs["cpu"][k]).abs().max()) for k in keys}
+        one_ulp = {k: float((runs["cpu_ulp"][k] - runs["cpu"][k]).abs().max()) for k in keys}
+        bars = {k: max(1e-4, 2 * one_ulp[k]) for k in keys}
+        w = o["w"].cpu()
+        mixed = bool(torch.equal(w[:, 0], w[:, OPTION_CROSSOVER - 1])) and not torch.equal(w[:, 0], w[:, -1])
+        use_pe = [b.use_pe for b in G.synthesis_network.blocks()]
+        rec[name] = {"max_abs_err": errs, "one_ulp": one_ulp, "bars": bars, "k1": k1["fused_bias_act"],
+                     "decisions_own_differ": differ, "use_pe": use_pe,
+                     "pe_ch": [b.pe.out_ch if b.use_pe else 0 for b in G.synthesis_network.blocks()]}
+        log("options", f"(b) {name} G ({syn}, style mixing at n = {OPTION_CROSSOVER} of "
+            f"{G.synthesis_network.num_styles}): card vs CPU fp32 B={B_SLICE}, the card's decisions replayed "
+            f"(elements where the CPU's own would differ {differ}; the mapping network's leaky ReLU is not replayed): "
+            f"max abs err {errs}, bars {bars} (1e-4, or twice one ulp's {one_ulp}); K1 {k1}; blocks with a PE "
+            f"{use_pe}, PE channels {rec[name]['pe_ch']}")
+        assert all(errs[k] <= bars[k] for k in keys), (errs, bars)
+        assert k1 == {"fused_bias_act": OPTION_K1[name], "fused_chain_fwd": 0, "fused_chain_bwd": 0}, k1
+        assert mixed and all(bool(torch.isfinite(o[k]).all()) for k in keys)
+        del G
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_steps(dev):
+    """(b) The fp32 B=4 step with G and D remat (R1 + ADA + warmup) on the card against the
+    CPU at phase 9's bars; then on the card the remat step against the plain step from one
+    state on one set of draws, held to the same bars (losses and D outputs 1e-4, R1's
+    penalty and each phase's gradients 1e-2 of their largest), or twice what a second
+    plain step differs from the first by where that is larger (the card's R1 double
+    backward is not deterministic); K1 / K4 / K5 launches of each."""
+    rec = {"card_vs_cpu": train_card_vs_cpu(dev, label="options-remat", remat=True)}
+    cfg = train_cfg("dusty_v2")
+    cfg["training"]["batch_size"] = 4
+    tr = Trainer(cfg, device=dev, seed=7)
+    st = tr.init_state(seed=3)
+    batch = train_batch(tr, 1)
+    for pre in (30, 31):
+        tr.step(st, batch, pre)
+    draws = record_draws(tr, st, batch, 32)
+    runs = {}
+    for name in ("remat", "plain", "plain_again"):
+        s = copy.deepcopy(st)
+        for net in (s.G, s.G_ema):
+            net.synthesis_network.remat = name == "remat"
+        s.D.remat = name == "remat"
+        phases = {}
+        read_and_reset(CHAIN_COUNTERS)
+        m = tr.step(s, batch, 32, draws=ReplayStream(draws, device=dev), on_phase=phase_recorder(phases))
+        torch.cuda.synchronize()
+        runs[name] = (phases, {k: float(v) for k, v in m.items()}, read_and_reset(CHAIN_COUNTERS))
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+
+    def diff(a, b):
+        (pa, ma, _), (pb, mb, _) = runs[a], runs[b]
+        d = {k: rel(ma[k], mb[k]) for k in ("loss/G/adversarial", "loss/D/adversarial", "loss/D/gradient_penalty")}
+        for y in ("y_real", "y_fake"):
+            d[y] = float((pa["d"][0][y] - pb["d"][0][y]).abs().max())
+        d.update({f"{n}_phase": rel_max_err(pa[n][1], pb[n][1]) for n in ("g", "d", "r1")})
+        return d
+
+    err, run_to_run = diff("remat", "plain"), diff("plain_again", "plain")
+    # R1's penalty is a sum of squared input gradients: it is held to the gradients' bar, as in phase 9
+    bars = {k: max(1e-2 if k.endswith(("_phase", "gradient_penalty")) else 1e-4, 2 * run_to_run[k]) for k in err}
+    launches, launches_p = runs["remat"][2], runs["plain"][2]
+    rec.update(remat_vs_plain_err=err, plain_run_to_run=run_to_run, remat_vs_plain_bars=bars,
+               r1_step_launches={"remat": launches, "plain": launches_p})
+    log("options", f"(b) on the card, the fp32 B=4 R1 + ADA + warmup step with G and D remat against the plain step "
+        f"(one state, one set of draws): losses and R1's penalty (relative), D outputs (abs), phase gradients (of the "
+        f"largest) {err}, bars {bars} (phase 9's, or twice a second plain step's difference {run_to_run}); launches "
+        f"K1 / K4 / K5 remat {launches}, plain {launches_p}")
+    assert all(err[k] <= bars[k] for k in err), (err, bars)
+    assert launches_p == STEP_LAUNCHES[True], launches_p
+    assert launches["fused_chain_bwd"] == launches_p["fused_chain_bwd"], (launches, launches_p)
+    assert all(launches[k] > launches_p[k] for k in ("fused_bias_act", "fused_chain_fwd")), (launches, launches_p)
+    del tr, st
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_rates(dev):
+    """(b) bf16 B=128 (dusty_v2_bf16.yaml) steady step without and with G and D remat: ms
+    (CUDA events), peak GiB, K1 / K4 / K5 launches a step."""
+    tr = Trainer(full_train_cfg(True), device=dev, seed=0)
+    st = tr.init_state(seed=0)
+    batch = train_batch(tr, 0)
+    tr.step(st, batch, STEADY_IT)
+    counter = iter(range(1, 10**6))
+    rows = {}
+    for name in ("plain", "remat"):
+        on = name.startswith("remat")
+        for net in (st.G, st.G_ema):
+            net.synthesis_network.remat = on
+        st.D.remat = on
+        read_and_reset(CHAIN_COUNTERS)
+        tr.step(st, batch, STEADY_IT + 48 * next(counter))
+        torch.cuda.synchronize()
+        launches = read_and_reset(CHAIN_COUNTERS)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: tr.step(st, batch, STEADY_IT + 48 * next(counter)), reps=2, repeats=2)
+        rows[name] = {"step_ms": ms, "imgs_per_s": 1e3 * B_WIDE / ms,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+    read_and_reset(CHAIN_COUNTERS)
+    log("options", "(b) bf16 B=128 steady step: " + "; ".join(
+        f"{k} {v['step_ms']:.3f} ms = {v['imgs_per_s']:.1f} imgs/s, peak {v['peak_gib']:.2f} GiB, launches "
+        f"{v['launches']}" for k, v in rows.items()))
+    assert rows["plain"]["launches"] == STEP_LAUNCHES[False], rows["plain"]["launches"]
+    for net in (st.G, st.G_ema):
+        net.synthesis_network.remat = False
+    del tr, st
+    torch.cuda.empty_cache()
+    return rows
+
+
+def diffaugment_card_vs_cpu(dev):
+    """(c) DiffAugment's default policy at p 0.6 on a bf16 B=128 batch's shape (float32,
+    64 x 512): the card's draws recorded and replayed on the CPU, outputs within 1e-6 of
+    their largest magnitude (contrast's exp2 may round one ulp apart on the two devices,
+    ~1e-6 absolute at the batch's largest values); ms a call on the card."""
+    from dusty_gan_v2_tpu_torch.augment import DiffAugment
+
+    aug = DiffAugment()
+    x = torch.randn(B_WIDE, 1, 64, 512, generator=torch.Generator().manual_seed(41))
+    xd, p = x.to(dev), torch.tensor(0.6, device=dev)
+    stream = RecordingStream(B_WIDE, torch.Generator(device=dev).manual_seed(5), dev)
+    y = aug(xd, p, stream)
+    y_cpu = aug(x, p.cpu(), ReplayStream(stream.log))
+    err = float((y.cpu() - y_cpu).abs().max())
+    bar = 1e-6 * float(y_cpu.abs().max())
+    moved = float((y_cpu != x).reshape(B_WIDE, -1).any(1).float().mean())
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ms = cuda_ms(lambda: aug(xd, p, PerSampleStream(B_WIDE, gen, dev)), reps=10, repeats=3)
+    rec = {"max_abs_err": err, "bar": bar, "draws": len(stream.log), "share_changed": moved, "ms": ms}
+    log("options", f"(c) DiffAugment, default policy, p 0.6, B={B_WIDE} x 1 x 64 x 512: card vs CPU on the card's "
+        f"{len(stream.log)} draws max abs err {err:.3g} (bar {bar:.3g}, 1e-6 of the largest magnitude); {moved:.3f} "
+        f"of the samples changed; {ms:.3f} ms a call on the card")
+    assert err <= bar and moved > 0, rec
+    return rec
+
+
+def options_semseg(dev, root):
+    """(d) SqueezeSegV2 + CAM (sim2real_w_gan_noise_dustyv2_bf16.yaml's model) with the
+    reduce_window pool and two-pass BN, and with the shift pool: one float64 B=4 step card
+    against CPU at phase 11's bars each; the bf16 B=120 step's ms in each form beside the
+    default (separable pool, one-pass BN)."""
+    rec = {"card_vs_cpu": {
+        "reduce_window, two-pass BN": semseg_card_vs_cpu(
+            dev, root, {"pool_impl": "reduce_window", "bn_one_pass": False}, "options-semseg"),
+        "shift": semseg_card_vs_cpu(dev, root, {"pool_impl": "shift"}, "options-semseg")}}
+    batch = semseg_batch(root, SEMSEG_CONFIG[0], dev)
+    rows = {}
+    for label, arch in POOL_FORMS.items():
+        cfg = semseg_cfg(root)
+        cfg.arch.update(arch)
+        tr = semseg_trainer(cfg, dev)
+        counter = iter(range(1, 10**6))
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: tr.step(batch, next(counter)), reps=1, repeats=3)
+        rows[label] = {"step_ms": ms, "imgs_per_s": 1e3 * SEMSEG_CONFIG[0] / ms,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del tr
+    torch.cuda.empty_cache()
+    rec["rates_bf16_b120"] = rows
+    log("options", f"(d) semseg bf16 B={SEMSEG_CONFIG[0]} step with the CRF: " + "; ".join(
+        f"{k} {v['step_ms']:.3f} ms = {v['imgs_per_s']:.1f} imgs/s, peak {v['peak_gib']:.2f} GiB" for k, v in rows.items()))
+    return rec
+
+
+def phase_options(dev, smi, v1_bare_rate):
+    """Phase 16: (a) the C++ projection under the loader, (b) the generator options and
+    remat, (c) DiffAugment, (d) semseg's pool forms and two-pass BN."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        tmp = Path(tmp)
+        parts = (("loader", lambda: (fabricate_kitti(tmp / "kitti_raw"), options_loader(dev, tmp, v1_bare_rate))[1]),
+                 ("generators", lambda: option_forward_gates(dev)), ("remat", lambda: remat_steps(dev)),
+                 ("remat_rates_bf16_b128", lambda: remat_rates(dev)),
+                 ("diff_augment", lambda: diffaugment_card_vs_cpu(dev)),
+                 ("semseg", lambda: (fabricate_semseg(tmp / "semseg"), options_semseg(dev, tmp / "semseg"))[1]))
+        rec["part_s"] = {}
+        for name, fn in parts:
+            t1 = time.perf_counter()
+            rec[name] = fn()
+            rec["part_s"][name] = time.perf_counter() - t1
+    rec["s"] = time.perf_counter() - t0
+    log("options", f"phase 16: {rec['s']:.1f} s, by part {rec['part_s']} ({smi})")
+    return rec
+
+
 def check_kernels_line(ks):
     for k in ks:
         assert all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")) and k["launches"] > 0, k
@@ -3654,6 +4014,8 @@ def main():
     inversion_rec = run_phase("13 inversion", phase_inversion, dev, smi)
     parallel_rec = run_phase("14 parallel", phase_parallel, dev, smi, cli_rec, semseg_rec)
     interop_rec = run_phase("15 interop", phase_interop, dev, smi)
+    options_rec = run_phase("16 options", phase_options, dev, smi,
+                            other_rec["dusty_v1"]["bare"]["rates"]["imgs_per_s"])
     # this slice's main path is demo_inversion at its defaults: K1 at each of its 1,001 G
     # forwards; K4 and K5 over train_gan's 16 iterations (8, a checkpoint, 8 resumed), K2 and
     # K3 in test_gan (phase 10), the paths that run them
@@ -3669,6 +4031,7 @@ def main():
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
         "other_archs": other_rec, "inversion": inversion_rec, "parallel": parallel_rec, "interop": interop_rec,
+        "options": options_rec,
     }
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1, default=str))

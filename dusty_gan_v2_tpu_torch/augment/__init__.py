@@ -1,5 +1,6 @@
 """Augmentation of the port (counterpart of dusty_gan_v2_tpu/augment)."""
 
 from .ada import AdaptiveAugment, AdaState
+from .diff_augment import DiffAugment
 
-__all__ = ["AdaptiveAugment", "AdaState"]
+__all__ = ["AdaptiveAugment", "AdaState", "DiffAugment"]

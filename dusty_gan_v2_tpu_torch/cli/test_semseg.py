@@ -5,11 +5,11 @@ precision / recall table (counterpart of test_semseg.py).
         [--dataset_root DIR] [--batch_size N] [--knn [--knn_k K --knn_kernel_size S]] [--out scores.json] \
         [--device cuda|cpu]
 
-The checkpoint is one that cli/train_semseg.py wrote. The protocol omits the cyclist
+The checkpoint is one that cli/train_semseg.py wrote, the JAX CLI's msgpack file or a
+reference `.pth` (semseg/train_step.py::load_checkpoint). The protocol omits the cyclist
 class (its labels count as unknown, and so do its predictions); --knn refines the
 predictions with the kNN post-filter on the device. The counts stay on the device until
-the end. Not ported: the JAX CLI's release `.pth` files and pretrained keywords (a
-download) and its msgpack checkpoints.
+the end. Not ported: the JAX CLI's release keywords (a download).
 """
 
 from __future__ import annotations

@@ -31,7 +31,8 @@ Every draw is keyed by (seed, iteration): the step's by fold_seed(seed, iteratio
 the side samples' by fold_seed(seed, SIDE, 2i + 1) and (seed, SIDE, 2i), and a resumed
 run skips the sampler's indices of the iterations done, so that it trains on what the
 uninterrupted run would have. imgs/s counts the global batch over the iterations of this
-run only. Not ported yet: the TensorBoard writer and orbax checkpoints.
+run only. Not ported: the TensorBoard writer (the card's machine has no tensorboard) and
+orbax checkpoint directories (the JAX CLI's `--ckpt_backend orbax`: tensorstore's formats).
 """
 
 from __future__ import annotations

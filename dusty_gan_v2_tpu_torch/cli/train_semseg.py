@@ -48,6 +48,7 @@ from ..semseg import (
     GTALiDAR, GTALiDAR_GAN, KITTIRawFrontal, SqueezeSegV1, SqueezeSegV2, apply_squeezenet_fire_weights,
     load_squeezenet_v11,
 )
+from ..semseg.common import POOL_IMPLS
 from ..semseg.train_step import SemsegTrainer, confusion_device, save_checkpoint
 from ..utils import init_random_seed, resolve_device
 from ..utils.config import load_config, save_config
@@ -97,11 +98,11 @@ def build_dataset(cfg):
 def build_model(cfg):
     """SqueezeSegV1 / V2 of cfg.arch, weights drawn from random_seed (on the CPU)."""
     arch = cfg.arch
-    # the JAX package's TPU-speed alternatives of the pool and the BN moments
-    if arch.get("pool_impl") not in (None, "separable"):
-        raise NotImplementedError(f"arch.pool_impl: {arch.pool_impl} (the port has the separable pool only)")
-    if arch.get("bn_one_pass") not in (None, True):
-        raise NotImplementedError("arch.bn_one_pass: false (the port has one-pass BN moments only)")
+    # the JAX package's implementation switches of the pool and the BN moments (module
+    # globals there, set by its build_model), passed to the modules here
+    pool_impl = str(arch.get("pool_impl") or "separable")
+    if pool_impl not in POOL_IMPLS:
+        raise ValueError(f"arch.pool_impl: {pool_impl!r} (one of {POOL_IMPLS})")
     crf = arch.get("crf")
     kwargs = dict(
         inputs=tuple(arch.inputs),
@@ -119,13 +120,16 @@ def build_model(cfg):
             "num_iters": int(crf.num_iters),
         } if arch.use_crf else None,
         seed=int(cfg.random_seed),
+        pool_impl=pool_impl,
     )
     if arch.name == "squeezeseg_v1":
         return SqueezeSegV1(**kwargs)
     if arch.name == "squeezeseg_v2":
         bias = cfg.dataset.get("logit_bias")
+        one_pass = arch.get("bn_one_pass")
         return SqueezeSegV2(**kwargs, bn_momentum=float(arch.bn_momentum),
-                            logit_bias=tuple(bias) if bias is not None else None)
+                            logit_bias=tuple(bias) if bias is not None else None,
+                            bn_one_pass=True if one_pass is None else bool(one_pass))
     raise ValueError(arch.name)
 
 

@@ -4,8 +4,11 @@ batch loader and the device prefetcher of the training loop.
 
 Counterpart of dusty_gan_v2_tpu/datasets/kitti.py, a numpy copy of its split tables,
 `scan_unfolding` / z-buffer projection, resize, `KITTIRaw`, `InfiniteSampler` and
-`Prefetcher`: the same frames give the same arrays. The projection is the numpy one
-only; the JAX package's native C++ route (datasets/native.py) is not ported.
+`Prefetcher`: the same frames give the same arrays. `KITTIRaw` projects each frame with
+the C++ library of datasets/native.py (built with g++ at first use; a build failure
+raises), as the JAX loader does where its library loads, then resizes with numpy as the
+JAX loader does; the numpy projection here is the library's test oracle and plain
+version, and no loader path falls back to it.
 `DevicePrefetcher` keeps batches in flight to a CUDA device: pinned host tensors
 copied with non_blocking=True on a side stream, the consumer's stream waiting on an
 event of that stream.
@@ -24,6 +27,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .native import project_points_to_image_native
 
 __all__ = [
     "KITTIRaw", "InfiniteSampler", "Prefetcher", "DevicePrefetcher", "to_device", "project_points_to_image",
@@ -241,10 +246,7 @@ class KITTIRaw:
             img = self._cache[index]
         else:
             pts = np.fromfile(self.datalist[index], dtype=np.float32).reshape(-1, 4)
-            img = project_points_to_image(
-                pts, H=64, W=2048, min_depth=self.min_depth, max_depth=self.max_depth,
-                scan_unfolding=self.scan_unfolding,
-            )
+            img = project_points_to_image_native(pts, 64, 2048, self.min_depth, self.max_depth, self.scan_unfolding)
             img = nearest_resize_hw(img, self.shape)
             img = img * img[..., 5:6]  # zero out invalid cells in every channel
             if self._cache is not None:

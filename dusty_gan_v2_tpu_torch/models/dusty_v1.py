@@ -52,11 +52,14 @@ class Generator(vanilla.Generator):
         train: bool = False,
         aug_shift: Optional[torch.Tensor] = None,
         input_w: bool = False,
+        style_mixing: bool = False,
+        mixing=None,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D) -> dict of image, raydrop_logit, w, raydrop_mask, image_orig. `angle`
-        is not read. Without `gumbel_noise` the logistic noise is drawn from `generator`."""
-        o = super().forward(z, truncation_psi=truncation_psi, pe_cache=pe_cache, train=train, aug_shift=aug_shift,
-                            input_w=input_w)
+        is not read. Without `gumbel_noise` the logistic noise is drawn from `generator`,
+        after style mixing's draws where `style_mixing` is on and `mixing` is not given."""
+        o = super().forward(z, truncation_psi=truncation_psi, generator=generator, pe_cache=pe_cache, train=train,
+                            aug_shift=aug_shift, input_w=input_w, style_mixing=style_mixing, mixing=mixing)
         if gumbel_noise is None:
             if generator is None:
                 raise ValueError("pass gumbel_noise or a torch.Generator to draw it")

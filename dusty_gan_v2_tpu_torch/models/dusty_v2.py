@@ -14,18 +14,28 @@ Train mode (`train=True`) updates the w_avg and ema_var buffers in place and, wi
 `aug_coords`, shifts the azimuth per sample inside the Fourier encodings and shifts the
 skip back in image space. With `use_noise`, each modulated conv's output takes a noise
 map (ops/noise.py) before its bias-act: `noise` holds, per block and conv, a fixed
-(1, 1, H, W) map or per-sample ones, drawn in block order (`draw_noise`). Not ported:
-style mixing and rematerialized discriminator blocks.
+(1, 1, H, W) map or per-sample ones, drawn in block order (`draw_noise`). A block at
+scale 1 other than the first has no Fourier PE (its conv1 takes h alone), as in JAX.
+With `style_mixing` the styles of two latents are mixed (models/base.py).
+
+`remat` (the synthesis network's and the discriminator's, JAX's nn.checkpoint of each
+block) runs each synthesis / residual block under torch.utils.checkpoint: its
+activations are dropped after the forward and recomputed in the backward, R1's double
+backward included. Every draw a block takes (noise maps, the azimuth shift) is made
+before the block and passed in, so the recompute sees the same numbers; the ema_var
+buffers a train-mode block writes are set back for the recompute (`remat`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (
     EqualLRDense,
@@ -54,10 +64,45 @@ from .heads import resolve_act
 
 __all__ = [
     "MappingNetwork", "Head", "SynthesisBlock", "SynthesisNetwork", "Generator",
-    "downsample_angle", "build_pe_cache", "fixed_noise_maps", "ResidualBlock", "Discriminator",
+    "downsample_angle", "build_pe_cache", "fixed_noise_maps", "ResidualBlock", "Discriminator", "remat",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _BuffersSetTo:
+    """Inside the block, module's buffers hold `values`; after it, their own values again.
+    It can be entered again (a double backward recomputes twice)."""
+
+    def __init__(self, module: nn.Module, values):
+        self.buffers, self.values = list(module.buffers()), values
+
+    @torch.no_grad()
+    def __enter__(self):
+        self.now = [b.detach().clone() for b in self.buffers]
+        for b, v in zip(self.buffers, self.values):
+            b.copy_(v)
+
+    @torch.no_grad()
+    def __exit__(self, *exc):
+        for b, v in zip(self.buffers, self.now):
+            b.copy_(v)
+
+
+def remat(module: nn.Module, *args):
+    """module(*args) with its activations recomputed in the backward (non-reentrant
+    torch.utils.checkpoint, which double backward passes through); outside autograd a
+    plain call. The forward may write the module's buffers (ModConv2d's ema_var in train
+    mode): the recompute runs on their values from before the forward and the written
+    values come back after it, so each write is made once and the recompute repeats the
+    forward's numbers. The module draws nothing (preserve_rng_state off)."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    before = [b.detach().clone() for b in module.buffers()]
+    return checkpoint(
+        module, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _BuffersSetTo(module, before)),
+    )
 
 
 class MappingNetwork(nn.Module):
@@ -126,8 +171,6 @@ class SynthesisBlock(nn.Module):
         dtype: str = "float32",
     ):
         super().__init__()
-        if not use_pe:
-            raise NotImplementedError("synthesis blocks without a Fourier PE are not ported yet")
         self.is_first = in_ch == 0
         self.out_ch = tuple(out_ch)
         self.dtype = _DTYPES[dtype]
@@ -136,8 +179,11 @@ class SynthesisBlock(nn.Module):
             if up > 1
             else None
         )
-        self.pe = FourierFeature(tuple(resolution), pe_type, pe_ch, tuple(pe_scale_offset))
-        pe_in = fourier_out_ch(pe_ch, pe_type)
+        self.use_pe = use_pe
+        pe_in = 0
+        if use_pe:
+            self.pe = FourierFeature(tuple(resolution), pe_type, pe_ch, tuple(pe_scale_offset))
+            pe_in = fourier_out_ch(pe_ch, pe_type, tuple(resolution), tuple(pe_scale_offset))
         self.conv1 = ModConv2d(in_ch + pe_in, mid_ch, mod_ch, use_bias=False, ema=True)
         if use_noise:
             self.noise1 = NoiseInjection(resolution)
@@ -153,9 +199,9 @@ class SynthesisBlock(nn.Module):
         """The block's NoiseInjection modules in call order (none without use_noise)."""
         return [getattr(self, n) for n in ("noise1", "noise2") if hasattr(self, n)]
 
-    def pe_volume(self, angle: torch.Tensor) -> torch.Tensor:
-        """This block's PE volume at its compute dtype (build_pe_cache)."""
-        return self.pe(angle.to(self.dtype))
+    def pe_volume(self, angle: torch.Tensor) -> Optional[torch.Tensor]:
+        """This block's PE volume at its compute dtype (build_pe_cache); None without a PE."""
+        return self.pe(angle.to(self.dtype)) if self.use_pe else None
 
     def forward(
         self,
@@ -184,12 +230,14 @@ class SynthesisBlock(nn.Module):
                 if train:
                     with torch.no_grad():
                         x_stat = resample_sumsq(h, self.up_plan)
-        pe_angle = angle.to(self.dtype) if pe_entry is None else None
-        pre = None if pe_entry is None else pe_entry.to(self.dtype)
-        if azim_shift is None:
-            h_pe, pe_rot = self.pe(pe_angle, precomputed=pre), None
-        else:
-            h_pe, pe_rot = self.pe(pe_angle, azim_shift=azim_shift, as_rotation=True, precomputed=pre)
+        h_pe = pe_rot = None
+        if self.use_pe:
+            pe_angle = angle.to(self.dtype) if pe_entry is None else None
+            pre = None if pe_entry is None else pe_entry.to(self.dtype)
+            if azim_shift is None:
+                h_pe = self.pe(pe_angle, precomputed=pre)
+            else:
+                h_pe, pe_rot = self.pe(pe_angle, azim_shift=azim_shift, as_rotation=True, precomputed=pre)
         h = self.conv1(h, next(ws), x_shared=h_pe, x_op=x_op, train=train, shared_rotation=pe_rot, x_stat=x_stat)
         if layers:
             h = layers[0](h, noise[0])
@@ -203,8 +251,8 @@ class SynthesisBlock(nn.Module):
         # skip accumulation in float32 (float64 stays), all heads stacked so one resample serves them
         acc = torch.promote_types(h.dtype, torch.float32)
         o_stack = torch.cat([o[c["name"]].to(acc) for c in self.out_ch if c["ch"] > 0], dim=1)
-        if skip is not None:
-            o_stack = o_stack + resample(skip, self.up_plan)
+        if skip is not None:  # at scale 1 the skip passes unresampled (the JAX block fails there)
+            o_stack = o_stack + (skip if self.up_plan is None else resample(skip, self.up_plan))
         return h, o_stack
 
 
@@ -235,8 +283,10 @@ class SynthesisNetwork(nn.Module):
         aug_coords_blitting: bool = False,
         output_scale: float = 0.25,
         compute_dtype: str = "float32",
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.out_ch = tuple(dict(o) for o in out_ch)
         self.resolution = tuple(resolution)
         self.ring = ring
@@ -302,7 +352,8 @@ class SynthesisNetwork(nn.Module):
         return pyramid
 
     def pe_cache(self, angle: torch.Tensor):
-        """Per-block PE volumes for a fixed angle grid (feed back as `pe_cache`)."""
+        """Per-block PE volumes for a fixed angle grid (feed back as `pe_cache`); None for
+        a block without a PE."""
         return tuple(b.pe_volume(a) for b, a in zip(self.blocks(), self.angle_pyramid(angle)))
 
     def forward(
@@ -330,10 +381,9 @@ class SynthesisNetwork(nn.Module):
             pyramid = (None,) * len(self.scales)
         h, skip, wi = None, None, 0
         for i, block in enumerate(self.blocks()):
-            h, skip = block(
-                h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i], train, shift,
-                () if noise is None else noise[i],
-            )
+            args = (h, skip, (ws[:, wi], ws[:, wi + 1], ws[:, wi + 2]), pyramid[i], pe_cache[i], train, shift,
+                    () if noise is None else noise[i])
+            h, skip = remat(block, *args) if self.remat else block(*args)
             wi += 1 if i == 0 else 2
         if shift is not None:
             skip = circular_translate_w(skip, shift / (2.0 * np.pi) * self.resolution[1])
@@ -385,13 +435,17 @@ class Generator(nn.Module, GeneratorMixin):
         aug_shift: Optional[torch.Tensor] = None,
         input_w: bool = False,
         noise: Optional[Sequence] = None,
+        style_mixing: bool = False,
+        mixing=None,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D), angle (1, 2, H, W) -> dict of image, raydrop_logit, w,
         raydrop_mask, image_orig. With `input_w`, z is the styles (B, num_styles, D)
         and the mapping network does not run. Without `gumbel_noise` the logistic noise
         is drawn from `generator`, and so is the train-mode azimuth shift without
-        `aug_shift` (U[0, 1) per sample, drawn first), and with use_noise the noise maps
-        without `noise` (per sample, after the shift; SynthesisNetwork.draw_noise)."""
+        `aug_shift` (U[0, 1) per sample, drawn first), with use_noise the noise maps
+        without `noise` (per sample, after the shift; SynthesisNetwork.draw_noise), and
+        with `style_mixing` its draws without `mixing` (models/base.py::draw_style_mixing,
+        after the noise)."""
         syn = self.synthesis_network
         B = z.shape[0]
         if train and syn.aug_coords and aug_shift is None:
@@ -402,7 +456,8 @@ class Generator(nn.Module, GeneratorMixin):
             if generator is None:
                 raise ValueError("pass noise or a torch.Generator to draw it")
             noise = syn.draw_noise(PerSampleStream(B, generator, z.device))
-        w = self._style(self.mapping_network, z, syn.num_styles, truncation_psi, train, input_w)
+        mixing = self._mixing(style_mixing, mixing, z, syn.num_styles, generator)
+        w = self._style(self.mapping_network, z, syn.num_styles, truncation_psi, train, input_w, mixing)
         o = syn(w, angle, pe_cache=pe_cache, train=train, aug_shift=aug_shift, noise=noise)
         o["w"] = w
         if gumbel_noise is None:
@@ -499,8 +554,7 @@ class Discriminator(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("rematerialized residual blocks are not ported yet (remat=False)")
+        self.remat = remat
         self.in_ch, self.ring, self.pre_blur = in_ch, ring, pre_blur
         self.mbdis_group, self.mbdis_feat = mbdis_group, mbdis_feat
         self.resolution = tuple(resolution)
@@ -538,7 +592,8 @@ class Discriminator(nn.Module):
         h = self.stem_act(h.to(self.layer_dtype(i + 1)))
         i += 2
         for j in range(self.n_down):
-            h = getattr(self, f"res{j}")(h.to(self.layer_dtype(i)), blur_fuse)
+            block, x = getattr(self, f"res{j}"), h.to(self.layer_dtype(i))
+            h = remat(block, x, blur_fuse) if self.remat else block(x, blur_fuse)
             i += 1
         h = minibatch_stddev(h.float(), group=self.mbdis_group, features=self.mbdis_feat)
         h = self.epi_act1(self.epi_conv(h))

@@ -130,14 +130,18 @@ class Generator(nn.Module, GeneratorMixin):
         train: bool = False,
         aug_shift: Optional[torch.Tensor] = None,
         input_w: bool = False,
+        style_mixing: bool = False,
+        mixing=None,
     ) -> Dict[str, torch.Tensor]:
         """z (B, D) -> dict of the heads' outputs and w. The generators' common keywords
-        are taken: `angle`, `gumbel_noise` and `generator` are not read; there is no
-        Fourier PE and no azimuth shift to take."""
+        are taken: `angle` and `gumbel_noise` are not read; there is no Fourier PE and
+        no azimuth shift to take. `generator` is read only for style mixing's draws
+        (`style_mixing` on, `mixing` not given; with one style, every style is z's)."""
         if pe_cache is not None or aug_shift is not None:
             raise ValueError("this generator has no Fourier PE and no azimuth shift: pass neither")
         syn = self.synthesis_network
-        w = self._style(lambda z: z, z, syn.num_styles, truncation_psi, train, input_w)  # identity mapping
+        mixing = self._mixing(style_mixing, mixing, z, syn.num_styles, generator)
+        w = self._style(lambda z: z, z, syn.num_styles, truncation_psi, train, input_w, mixing)  # identity mapping
         o = syn(w)
         o["w"] = w
         return o

@@ -12,7 +12,8 @@ checks each one's shape and gives each rank its rows, which is how the tests fee
 JAX step, one process and several the same numbers.
 
 Every method takes the shape of one sample's draw; the local batch is the stream's `n`
-and the global one n * world. `with_batch(n, parts)` gives a stream of another batch
+and the global one n * world. `scalar_randint` is the exception: one draw for the whole
+batch, the same on every rank (style mixing's crossover). `with_batch(n, parts)` gives a stream of another batch
 over the same source; `parts` > 1 lays out a batch made of that many concatenated
 sub-batches, each with ids of its own (the trainer's reals ++ fakes: the reals take the
 global rows [0, B), the fakes [B, 2B), and rank k keeps rows k*b.. of each half, as the
@@ -108,6 +109,10 @@ class PerSampleStream:
                           dtype=dtype)
         return _rows(a, self._layout)
 
+    def scalar_randint(self, minval: int, maxval: int) -> torch.Tensor:
+        """One int64 in [minval, maxval) for the whole batch (every rank draws it alike)."""
+        return torch.randint(minval, maxval, (), generator=self.generator, device=self.device)
+
     def bernoulli(self, p, shape=()) -> torch.Tensor:
         """Boolean (n, *shape): uniform < p, as jax.random.bernoulli draws."""
         return self.uniform(shape) < p
@@ -165,6 +170,17 @@ class ReplayStream:
 
     def randint(self, shape=(), minval=0, maxval=2, dtype=torch.int32) -> torch.Tensor:
         return self._next(shape, dtype)
+
+    def scalar_randint(self, minval: int, maxval: int) -> torch.Tensor:
+        """The next array, which must be 0-dimensional, as an int64 scalar on `device`."""
+        if not self.queue:
+            raise RuntimeError("replay stream exhausted: a scalar draw has no array left")
+        a = self.queue[0]
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, copy=True))
+        if a.ndim != 0:
+            raise ValueError(f"replay stream: next array has shape {tuple(a.shape)}, the draw asks for a scalar")
+        self.queue.pop(0)
+        return a.to(device=self.device, dtype=torch.int64)
 
     def bernoulli(self, p, shape=()) -> torch.Tensor:
         return self._next(shape, torch.float32) < p

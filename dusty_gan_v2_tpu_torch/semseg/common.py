@@ -1,6 +1,6 @@
-"""Semseg building blocks: torch-layout convolutions, BatchNorm with one-pass moments,
-conv -> ReLU (-> BN), the W-only 2x transposed conv, the Dropout2d + conv head, the
-separable max pool and the neighbour unfold.
+"""Semseg building blocks: torch-layout convolutions, BatchNorm with one-pass or
+two-pass moments, conv -> ReLU (-> BN), the W-only 2x transposed conv, the Dropout2d +
+conv head, the max pool in its three forms and the neighbour unfold.
 
 Counterpart of dusty_gan_v2_tpu/semseg/common.py. Submodules and parameters carry the
 flax names (conv, bn, weight, bias, running_mean, running_var), so a JAX variable tree
@@ -12,14 +12,16 @@ weights to the activation's dtype, and BatchNorm reduces in at least float32 and
 back. `train` is an explicit argument, as in the JAX modules, not nn.Module.training.
 
 Under data parallelism (a process group bound, parallel/mesh.py) BatchNorm normalizes
-with the global batch's moments (SyncBatchNorm semantics: its two one-pass means reduced
-together in one collective) and the head's Dropout2d masks are the global batch's rows,
-so the forward is a one-process run's on the same global batch.
+with the global batch's moments (SyncBatchNorm semantics: the one-pass form's two means
+reduced together in one collective, the two-pass form's mean and then its centred second
+moment) and the head's Dropout2d masks are the global batch's rows, so the forward is a
+one-process run's on the same global batch.
 
-Only the JAX package's default forms are ported: the "separable" max pool and one-pass
-BN moments. Its "reduce_window" / "shift" pools and two-pass moments are TPU-speed
-switches (`arch.pool_impl`, `arch.bn_one_pass`) that no shipped config sets; the model
-builder raises NotImplementedError for them.
+The JAX package's implementation switches (`arch.pool_impl`, `arch.bn_one_pass`, module
+globals there) are module arguments here: `max_pool2d(impl=)` "separable" (the default),
+"reduce_window" or "shift", and `BatchNorm2d(one_pass=)`. The three pools give the same
+values; they differ in where the gradient goes at exact ties, and each routes it as its
+JAX form does (see max_pool2d).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ __all__ = [
     "DeconvReLU",
     "HeadConv",
     "max_pool2d",
+    "POOL_IMPLS",
     "unfold_neighbors",
     "setup_in_ch",
     "trunc_normal_init",
@@ -119,14 +122,16 @@ class BatchNorm2d(nn.Module):
     """BatchNorm with torch's momentum convention (running = (1 - m) running + m batch),
     eps 1e-5 and the unbiased running variance.
 
-    Train mode takes one-pass moments centred on the running mean c (a constant):
-    v = max(E[(x - c)^2] - (m - c)^2, 0), the JAX package's default form, written in plain
-    torch ops (F.batch_norm takes two-pass moments and rounds bf16 otherwise). The
-    moments are at least float32 whatever the activation's dtype."""
+    Train mode takes, with `one_pass` (the JAX package's default form), moments centred
+    on the running mean c (a constant): v = max(E[(x - c)^2] - (m - c)^2, 0); without it
+    the two-pass v = E[(x - m)^2]. Both are written in plain torch ops (F.batch_norm
+    rounds bf16 otherwise); the moments are at least float32 whatever the activation's
+    dtype."""
 
-    def __init__(self, ch: int, momentum: float = 0.001):
+    def __init__(self, ch: int, momentum: float = 0.001, one_pass: bool = True):
         super().__init__()
         self.momentum = float(momentum)
+        self.one_pass = bool(one_pass)
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -145,11 +150,16 @@ class BatchNorm2d(nn.Module):
         if train:
             dims = (0, 2, 3)
             m = x32.mean(dims)
-            c = self.running_mean.to(x32.dtype, copy=True)
-            ex2c = (x32 - c.reshape(shape)).square().mean(dims)
-            if bound():  # the global batch's moments: both means in one collective
-                m, ex2c = axis_pmean(torch.cat([m, ex2c])).split(m.shape[0])
-            v = torch.maximum(ex2c - (m - c).square(), torch.zeros_like(ex2c))
+            if self.one_pass:
+                c = self.running_mean.to(x32.dtype, copy=True)
+                ex2c = (x32 - c.reshape(shape)).square().mean(dims)
+                if bound():  # the global batch's moments: both means in one collective
+                    m, ex2c = axis_pmean(torch.cat([m, ex2c])).split(m.shape[0])
+                v = torch.maximum(ex2c - (m - c).square(), torch.zeros_like(ex2c))
+            else:  # the global mean first, then the second moment centred on it
+                m = axis_pmean(m) if bound() else m
+                v = (x32 - m.reshape(shape)).square().mean(dims)
+                v = axis_pmean(v) if bound() else v
             with torch.no_grad():
                 n = x.shape[0] * x.shape[2] * x.shape[3] * world_size()
                 unbiased = v * n / max(n - 1, 1)
@@ -176,10 +186,10 @@ class ConvReLUNorm(nn.Module):
     """conv -> ReLU -> BN (SqueezeSegV2's order)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=(3, 3), stride=(1, 1), padding=(1, 1), bn_momentum=0.001,
-                 kernel_init=None):
+                 kernel_init=None, bn_one_pass: bool = True):
         super().__init__()
         self.conv = TorchConv2d(in_ch, out_ch, kernel_size, stride, padding, kernel_init=kernel_init)
-        self.bn = BatchNorm2d(out_ch, bn_momentum)
+        self.bn = BatchNorm2d(out_ch, bn_momentum, bn_one_pass)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.bn(torch.relu(self.conv(x)), train=train)
@@ -254,15 +264,65 @@ class HeadConv(nn.Module):
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=k // 2)
 
 
-def max_pool2d(x: torch.Tensor, kernel: int = 3, stride=(1, 2), padding: int = 1) -> torch.Tensor:
-    """torch MaxPool2d(kernel, stride, padding) as two 1-D pools, (k, 1) then (1, k): the
-    JAX package's "separable" form. The values are MaxPool2d's; at a tie the gradient
-    goes to the first maximum along H, then along W, as JAX's two 1-D reduce_window
-    VJPs route it (a 2-D pool would pick the first in row-major order: another element)."""
+POOL_IMPLS = ("separable", "reduce_window", "shift")
+
+
+def _sliding_max_1d(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """Stride-1 max over k-windows along `dim` (valid positions: length L - k + 1) by
+    shift-doubling: the max of two w-windows w apart covers 2w, and two w-windows k - w
+    apart cover k. torch.maximum, like JAX's, splits the gradient of a tie in half."""
+    m, w = x, 1
+    while 2 * w <= k:
+        n = m.shape[dim] - w
+        m = torch.maximum(m.narrow(dim, 0, n), m.narrow(dim, w, n))
+        w *= 2
+    if w < k:
+        d = k - w
+        n = m.shape[dim] - d
+        m = torch.maximum(m.narrow(dim, 0, n), m.narrow(dim, d, n))
+    return m
+
+
+def _window_scan(x: torch.Tensor, kernel: int, stride, padding: int) -> torch.Tensor:
+    """The k x k max as one scan over the window's taps in row-major order, each tap
+    taken where it is strictly greater: the gradient of a tie goes to the first maximum
+    in row-major order, the element XLA's select-and-scatter (JAX's reduce_window VJP,
+    select >=) picks."""
+    xp = F.pad(x, (padding,) * 4, value=-math.inf)
+    H = (xp.shape[2] - kernel) // stride[0] + 1
+    W = (xp.shape[3] - kernel) // stride[1] + 1
+    best = None
+    for dy in range(kernel):
+        for dx in range(kernel):
+            tap = xp[:, :, dy:dy + (H - 1) * stride[0] + 1:stride[0], dx:dx + (W - 1) * stride[1] + 1:stride[1]]
+            best = tap if best is None else torch.where(tap > best, tap, best)
+    return best
+
+
+def max_pool2d(x: torch.Tensor, kernel: int = 3, stride=(1, 2), padding: int = 1, impl: str = "separable") -> torch.Tensor:
+    """torch MaxPool2d(kernel, stride, padding) with -inf padding, in the JAX package's
+    three forms, equal in value; at exact ties (common in bf16 and after a ReLU) each
+    routes the gradient as its JAX form does:
+
+    - "separable": two 1-D pools, (k, 1) then (1, k): the first maximum along H, then
+      along W, as JAX's two 1-D reduce_window VJPs (a 2-D pool would pick the first in
+      row-major order: another element);
+    - "reduce_window": the k x k window as one scan (`_window_scan`): the first maximum
+      in row-major order;
+    - "shift": the stride-1 sliding max per axis by pairwise maxima, then subsampled: a
+      tie's gradient is split between the tied elements."""
     if isinstance(stride, int):
         stride = (stride, stride)
-    m = F.max_pool2d(x, (kernel, 1), (stride[0], 1), (padding, 0))
-    return F.max_pool2d(m, (1, kernel), (1, stride[1]), (0, padding))
+    if impl == "separable":
+        m = F.max_pool2d(x, (kernel, 1), (stride[0], 1), (padding, 0))
+        return F.max_pool2d(m, (1, kernel), (1, stride[1]), (0, padding))
+    if impl == "reduce_window":
+        return _window_scan(x, kernel, stride, padding)
+    if impl == "shift":
+        xp = F.pad(x, (padding,) * 4, value=-math.inf)
+        m = _sliding_max_1d(_sliding_max_1d(xp, kernel, 2), kernel, 3)
+        return m[:, :, :: stride[0], :: stride[1]]
+    raise ValueError(f"max pool impl {impl!r}: one of {POOL_IMPLS}")
 
 
 def unfold_neighbors(x: torch.Tensor, kernel_size, exclude_center: bool = True) -> torch.Tensor:

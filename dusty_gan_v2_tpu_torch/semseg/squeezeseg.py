@@ -13,6 +13,10 @@ the CPU from a generator seeded with `seed`, in registration order.
 
 In train mode the head's Dropout2d takes `keep`, a (B, 64, 1, 1) bool mask, when given,
 else draws from `generator` (common.HeadConv).
+
+`pool_impl` picks the max pools' form (common.max_pool2d, the encoder's and CAM's) and
+`bn_one_pass` (V2) BatchNorm's moments: the JAX package's `arch.pool_impl` and
+`arch.bn_one_pass`.
 """
 
 from __future__ import annotations
@@ -34,13 +38,14 @@ __all__ = ["SqueezeSegV1", "SqueezeSegV2", "CAM", "FireV1", "FireV2"]
 class CAM(nn.Module):
     """Context aggregation module: 7x7 max pool -> 1x1 squeeze -> ReLU -> 1x1 -> sigmoid gate."""
 
-    def __init__(self, ch: int, reduction: int = 16):
+    def __init__(self, ch: int, reduction: int = 16, pool_impl: str = "separable"):
         super().__init__()
+        self.pool_impl = pool_impl
         self.fc1 = TorchConv2d(ch, ch // reduction, (1, 1), (1, 1), (0, 0), kernel_init=xavier_uniform_init())
         self.fc2 = TorchConv2d(ch // reduction, ch, (1, 1), (1, 1), (0, 0), kernel_init=xavier_uniform_init())
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        a = max_pool2d(x, kernel=7, stride=(1, 1), padding=3)
+        a = max_pool2d(x, kernel=7, stride=(1, 1), padding=3, impl=self.pool_impl)
         a = self.fc2(torch.relu(self.fc1(a)))
         return x * torch.sigmoid(a)
 
@@ -63,13 +68,14 @@ class FireV1(nn.Module):
 
 class FireV2(nn.Module):
     def __init__(self, in_ch: int, s1x1: int, e1x1: int, e3x3: int, bn_momentum: float = 0.001, up: bool = False,
-                 init_std: float = 0.001):
+                 init_std: float = 0.001, bn_one_pass: bool = True):
         super().__init__()
         init = trunc_normal_init(init_std)
-        self.squeeze1x1 = ConvReLUNorm(in_ch, s1x1, (1, 1), (1, 1), (0, 0), bn_momentum, kernel_init=init)
+        bn = dict(kernel_init=init, bn_one_pass=bn_one_pass)
+        self.squeeze1x1 = ConvReLUNorm(in_ch, s1x1, (1, 1), (1, 1), (0, 0), bn_momentum, **bn)
         self.upsample = DeconvReLU(s1x1, s1x1) if up else None
-        self.expand1x1 = ConvReLUNorm(s1x1, e1x1, (1, 1), (1, 1), (0, 0), bn_momentum, kernel_init=init)
-        self.expand3x3 = ConvReLUNorm(s1x1, e3x3, (3, 3), (1, 1), (1, 1), bn_momentum, kernel_init=init)
+        self.expand1x1 = ConvReLUNorm(s1x1, e1x1, (1, 1), (1, 1), (0, 0), bn_momentum, **bn)
+        self.expand3x3 = ConvReLUNorm(s1x1, e3x3, (3, 3), (1, 1), (1, 1), bn_momentum, **bn)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = self.squeeze1x1(x, train=train)
@@ -79,7 +85,8 @@ class FireV2(nn.Module):
 
 
 class _SqueezeSeg(nn.Module):
-    def _init_common(self, inputs, num_classes, use_crf, crf_kwargs, dtype):
+    def _init_common(self, inputs, num_classes, use_crf, crf_kwargs, dtype, pool_impl):
+        self.pool_impl = pool_impl
         self.inputs = tuple(inputs)
         self.num_classes = int(num_classes)
         self.use_crf = bool(use_crf)
@@ -103,9 +110,10 @@ class _SqueezeSeg(nn.Module):
 
 class SqueezeSegV1(_SqueezeSeg):
     def __init__(self, inputs: Sequence[str], num_classes: int, head_dropout_p: float = 0.5, use_crf: bool = False,
-                 crf_kwargs: Optional[dict] = None, dtype: torch.dtype = torch.float32, seed: int = 0):
+                 crf_kwargs: Optional[dict] = None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 pool_impl: str = "separable"):
         super().__init__()
-        self._init_common(inputs, num_classes, use_crf, crf_kwargs, dtype)
+        self._init_common(inputs, num_classes, use_crf, crf_kwargs, dtype, pool_impl)
         in_ch, init = self.in_ch, trunc_normal_init(0.001)
         self.conv1b = ConvReLU(in_ch, 64, (1, 1), (1, 1), (0, 0), kernel_init=init)
         self.conv1a = ConvReLU(in_ch, 64, (3, 3), (1, 2), (1, 1), kernel_init=init)
@@ -128,11 +136,12 @@ class SqueezeSegV1(_SqueezeSeg):
         img = img.to(self.dtype)
         h_1b = self.conv1b(img)
         h_1a = self.conv1a(img)
-        h = self.fire2(max_pool2d(h_1a))
+        pool = lambda t: max_pool2d(t, impl=self.pool_impl)  # noqa: E731
+        h = self.fire2(pool(h_1a))
         h_3 = self.fire3(h)
-        h = self.fire4(max_pool2d(h_3))
+        h = self.fire4(pool(h_3))
         h_5 = self.fire5(h)
-        h = self.fire6(max_pool2d(h_5))
+        h = self.fire6(pool(h_5))
         h = self.fire8(self.fire7(h))
         h_9 = self.fire9(h)
         h = self.fire10(h_9) + h_5
@@ -145,28 +154,29 @@ class SqueezeSegV1(_SqueezeSeg):
 class SqueezeSegV2(_SqueezeSeg):
     def __init__(self, inputs: Sequence[str], num_classes: int, bn_momentum: float = 0.001,
                  head_dropout_p: float = 0.5, use_crf: bool = False, crf_kwargs: Optional[dict] = None,
-                 logit_bias: Optional[Sequence[float]] = None, dtype: torch.dtype = torch.float32, seed: int = 0):
+                 logit_bias: Optional[Sequence[float]] = None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 pool_impl: str = "separable", bn_one_pass: bool = True):
         super().__init__()
-        self._init_common(inputs, num_classes, use_crf, crf_kwargs, dtype)
-        in_ch, bm, enc = self.in_ch, bn_momentum, trunc_normal_init(0.001)
-        self.conv1b = ConvReLUNorm(in_ch, 64, (1, 1), (1, 1), (0, 0), bm, kernel_init=enc)
-        self.conv1a = ConvReLUNorm(in_ch, 64, (3, 3), (1, 2), (1, 1), bm, kernel_init=enc)
-        self.cam1 = CAM(64)
-        self.fire2 = FireV2(64, 16, 64, 64, bm)
-        self.cam2 = CAM(128)
-        self.fire3 = FireV2(128, 16, 64, 64, bm)
-        self.cam3 = CAM(128)
-        self.fire4 = FireV2(128, 32, 128, 128, bm)
-        self.fire5 = FireV2(256, 32, 128, 128, bm)
-        self.fire6 = FireV2(256, 48, 192, 192, bm)
-        self.fire7 = FireV2(384, 48, 192, 192, bm)
-        self.fire8 = FireV2(384, 64, 256, 256, bm)
-        self.fire9 = FireV2(512, 64, 256, 256, bm)
+        self._init_common(inputs, num_classes, use_crf, crf_kwargs, dtype, pool_impl)
+        in_ch, bm, enc, bn = self.in_ch, bn_momentum, trunc_normal_init(0.001), dict(bn_one_pass=bn_one_pass)
+        self.conv1b = ConvReLUNorm(in_ch, 64, (1, 1), (1, 1), (0, 0), bm, kernel_init=enc, **bn)
+        self.conv1a = ConvReLUNorm(in_ch, 64, (3, 3), (1, 2), (1, 1), bm, kernel_init=enc, **bn)
+        self.cam1 = CAM(64, pool_impl=pool_impl)
+        self.fire2 = FireV2(64, 16, 64, 64, bm, **bn)
+        self.cam2 = CAM(128, pool_impl=pool_impl)
+        self.fire3 = FireV2(128, 16, 64, 64, bm, **bn)
+        self.cam3 = CAM(128, pool_impl=pool_impl)
+        self.fire4 = FireV2(128, 32, 128, 128, bm, **bn)
+        self.fire5 = FireV2(256, 32, 128, 128, bm, **bn)
+        self.fire6 = FireV2(256, 48, 192, 192, bm, **bn)
+        self.fire7 = FireV2(384, 48, 192, 192, bm, **bn)
+        self.fire8 = FireV2(384, 64, 256, 256, bm, **bn)
+        self.fire9 = FireV2(512, 64, 256, 256, bm, **bn)
         # the decoder draws from N(0, 0.1) truncated
-        self.fire10 = FireV2(512, 64, 128, 128, bm, up=True, init_std=0.1)
-        self.fire11 = FireV2(256, 32, 64, 64, bm, up=True, init_std=0.1)
-        self.fire12 = FireV2(128, 16, 32, 32, bm, up=True, init_std=0.1)
-        self.fire13 = FireV2(64, 16, 32, 32, bm, up=True, init_std=0.1)
+        self.fire10 = FireV2(512, 64, 128, 128, bm, up=True, init_std=0.1, **bn)
+        self.fire11 = FireV2(256, 32, 64, 64, bm, up=True, init_std=0.1, **bn)
+        self.fire12 = FireV2(128, 16, 32, 32, bm, up=True, init_std=0.1, **bn)
+        self.fire13 = FireV2(64, 16, 32, 32, bm, up=True, init_std=0.1, **bn)
         self.head = HeadConv(64, self.num_classes, 3, head_dropout_p, kernel_init=trunc_normal_init(0.1),
                              bias_init_values=logit_bias)
         self._finish(seed)
@@ -175,11 +185,12 @@ class SqueezeSegV2(_SqueezeSeg):
         img = img.to(self.dtype)
         h_1b = self.conv1b(img, train)
         h_1a = self.cam1(self.conv1a(img, train))
-        h = self.cam2(self.fire2(max_pool2d(h_1a), train))
+        pool = lambda t: max_pool2d(t, impl=self.pool_impl)  # noqa: E731
+        h = self.cam2(self.fire2(pool(h_1a), train))
         h_3 = self.cam3(self.fire3(h, train))
-        h = self.fire4(max_pool2d(h_3), train)
+        h = self.fire4(pool(h_3), train)
         h_5 = self.fire5(h, train)
-        h = self.fire6(max_pool2d(h_5), train)
+        h = self.fire6(pool(h_5), train)
         h = self.fire8(self.fire7(h, train), train)
         h_9 = self.fire9(h, train)
         h = self.fire10(h_9, train) + h_5

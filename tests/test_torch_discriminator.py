@@ -261,8 +261,8 @@ def test_bf16_policy_close_to_fp32_and_to_jax(models):
 def test_build_discriminator_rules(monkeypatch):
     with pytest.raises(NotImplementedError):  # vanilla builds (tests/test_torch_other_archs.py)
         build_discriminator({"arch": "stylegan2", "layer_kwargs": {}}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_discriminator({**D_CFG, "layer_kwargs": {**D_CFG["layer_kwargs"], "remat": True}}, device="cpu")
+    # remat builds (its blocks under torch.utils.checkpoint: tests/test_torch_options.py)
+    assert build_discriminator({**D_CFG, "layer_kwargs": {**D_CFG["layer_kwargs"], "remat": True}}, device="cpu").remat
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         build_discriminator(D_CFG)

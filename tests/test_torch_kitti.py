@@ -1,13 +1,12 @@
 """The port's KITTI Raw loader (dusty_gan_v2_tpu_torch/datasets/kitti.py) against the JAX
 package's (dusty_gan_v2_tpu/datasets/kitti.py) on a fabricated KITTI Raw tree.
 
-The JAX KITTIRaw tries its native C++ projection first; the port has the numpy route
-only, so the JAX native module is made unimportable here and the JAX loader takes its
-numpy route. Items are compared byte for byte (dtype, shape and every bit); the split
-lists, the InfiniteSampler index streams and the Prefetcher batches must be equal."""
+Both loaders project through the C++ library of their own copy of csrc/projection.cpp
+(the JAX package's committed build, the port's g++ build): the same source with the same
+flags. Items are compared byte for byte (dtype, shape and every bit); the split lists,
+the InfiniteSampler index streams and the Prefetcher batches must be equal."""
 
 import itertools
-import sys
 
 import numpy as np
 import pytest
@@ -45,8 +44,10 @@ def root(tmp_path_factory):
 
 
 @pytest.fixture(autouse=True)
-def numpy_route(monkeypatch):
-    monkeypatch.setitem(sys.modules, "dusty_gan_v2_tpu.datasets.native", None)
+def native_route():
+    from dusty_gan_v2_tpu.datasets import native
+
+    assert native.available(), "the JAX package's native library does not load"
 
 
 def assert_bytes_equal(got, ref):

@@ -299,10 +299,11 @@ def test_tanh_to_sigmoid():
 # --------------------------------------------------------------------------- package rules
 
 def test_port_imports_no_jax():
-    """No module of the port imports jax, flax or the JAX package."""
-    banned = ("jax", "flax", "dusty_gan_v2_tpu")
+    """No module of the port, nor chip_smoke.py, imports jax, flax, optax, orbax or the JAX
+    package."""
+    banned = ("jax", "flax", "optax", "orbax", "dusty_gan_v2_tpu")
     offenders = []
-    for path in PORT_DIR.rglob("*.py"):
+    for path in [*PORT_DIR.rglob("*.py"), PORT_DIR.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
