@@ -203,6 +203,20 @@
    and two-pass BN, and with the shift pool: phase 11's float64 card-vs-CPU step each;
    the bf16 B=120 step's ms in each form beside the default.
 
+17. orbax: the JAX CLI's --ckpt_backend orbax checkpoint directories, read and written by
+   the port's own zstd (csrc/zstd_decode.cpp, built by g++ in phase 2), OCDBT and zarr
+   code. (a) The committed directory tests/data/torch_orbax_tiny, written by the JAX
+   package's save_checkpoint_orbax, decoded on the card's host: every leaf's sha256, dtype
+   and shape as tests/data/torch_orbax_tiny.json records them; the decoder's MB/s over the
+   fixture's chunks. (b) train_gan on configs/gans/dusty_v2_bf16.yaml (B=128, full width)
+   on phase 10's kind of fabricated tree under deterministic algorithms: iterations 1-2
+   with --ckpt_backend orbax and with the default file; both checkpoints read into
+   TrainStates bit-equal (Adam's moments included); --resume from each over iterations
+   3-6 with equal stats rows and final states, K1 / K4 / K5 156 / 144 / 48; the
+   directory's MiB against the file's, the loop's seconds in the save against the
+   background write's, the seconds to read. (c) autoload_ckpt of the directory and of the
+   file: a B=8 sample of each G_ema equal to the bit, K1 9 each.
+
 Phases 11 and 13 hold the semseg step and the bird's-eye view card against CPU in
 float64: in float32 two correct runs part there by rounding amplified through ReLU
 masks, max-pool choices, small-variance BatchNorm and nearest-neighbour ties, as far as
@@ -232,7 +246,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dusty_gan_v2_tpu_torch import kernels
+from dusty_gan_v2_tpu_torch.convert import zstd
 from dusty_gan_v2_tpu_torch.datasets import InfiniteSampler, KITTIRaw, Prefetcher, native
+from dusty_gan_v2_tpu_torch.utils import hostbuild
 from dusty_gan_v2_tpu_torch.evaluation import collect_generated, evaluate
 from dusty_gan_v2_tpu_torch.metrics import (
     build_pointnet, earth_mover_distance, emd_cost, emd_cuda, fps_cuda, furthest_point_sampling,
@@ -447,23 +463,26 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc for each CUDA source and g++ for the loader's projection (datasets/native.py),
-    all started together."""
+    """nvcc for each CUDA source and g++ for the host libraries (the loader's projection,
+    datasets/native.py; the zstd decoder, convert/zstd.py), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        host_lib = pool.submit(native.build)
+    with ThreadPoolExecutor(2) as pool:
+        host_libs = [pool.submit(native.build), pool.submit(hostbuild.build, zstd.SOURCE, zstd.BUILD_DIR, zstd.STEM)]
         reports = kernels.build_all()
-        native_path = host_lib.result()
+        native_path, zstd_path = (f.result() for f in host_libs)
     for name in kernels.SOURCES:
         kernels.library(name)
     native.library()
+    zstd.library()
     seconds = time.perf_counter() - t0
-    gxx = subprocess.run([native._cxx(), "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    gxx = subprocess.run([hostbuild.compiler(native.SOURCE), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
     reports["projection.cpp"] = f"{gxx}; {native_path.name}"
-    log("build", f"{len(kernels.SOURCES)} kernels and the loader's projection ({gxx}, {' '.join(native.CXX_FLAGS)}) "
-        f"built in {seconds:.2f} s into {kernels.BUILD_DIR}")
+    reports["zstd_decode.cpp"] = f"{gxx}; {zstd_path.name}"
+    log("build", f"{len(kernels.SOURCES)} kernels, the loader's projection and the zstd decoder ({gxx}, "
+        f"{' '.join(hostbuild.CXX_FLAGS)}) built in {seconds:.2f} s into {kernels.BUILD_DIR}")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -3975,16 +3994,207 @@ def phase_options(dev, smi, v1_bare_rate):
     return rec
 
 
+# phase 17: orbax checkpoint directories (the JAX CLI's --ckpt_backend orbax)
+ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "torch_orbax_tiny"
+ORBAX_PASSES = 20  # decodes of the fixture's chunks timed together
+ORBAX_RESUME = (2, 6)  # (b): iterations 1-2 written, 3-6 resumed
+
+
+def orbax_fixture():
+    """(a): the JAX package's directory read by the port, each leaf against the fixture's
+    digests; the decoder's MB/s over the fixture's zarr chunks."""
+    import hashlib
+
+    from dusty_gan_v2_tpu_torch.convert import ocdbt, orbax
+    from dusty_gan_v2_tpu_torch.training.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    tree = orbax.read_item(ORBAX_FIXTURE / "state")
+    read_s = time.perf_counter() - t0
+    rows = json.loads(ORBAX_FIXTURE.with_suffix(".json").read_text())["leaves"]
+    bad = []
+    for row in rows:
+        v = tree
+        for k in row["path"]:
+            v = v[k]
+        if row.get("empty"):
+            ok = v == {}
+        else:
+            ok = (str(v.dtype).removeprefix("torch.") == row["dtype"] and list(v.shape) == row["shape"] and
+                  hashlib.sha256(v.contiguous().reshape(-1).view(torch.uint8).numpy()).hexdigest() == row["sha256"])
+        if not ok:
+            bad.append("/".join(row["path"]))
+    assert not bad and len(rows) == 270, bad[:5]
+    cfg, _, angle, num_imgs = load_checkpoint(str(ORBAX_FIXTURE))
+    db = ocdbt.Database(ORBAX_FIXTURE / "state")
+    frames = [db.get(k) for k in db.keys() if not k.endswith(b"/.zarray")]
+    sizes = [zstd.content_size(f) for f in frames]
+    outs = [zstd.decompress(f) for f in frames]  # the sizes, where a frame declares none
+    decoded = sum(len(o) for o in outs)
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_PASSES):
+        for f, o in zip(frames, outs):
+            zstd.decompress_into(f, o)
+    call_s = (time.perf_counter() - t0) / ORBAX_PASSES
+    joined, out = b"".join(frames), bytearray(decoded)  # the frames back to back: one call a pass
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_PASSES):
+        zstd.decompress_into(joined, out)
+    joined_s = (time.perf_counter() - t0) / ORBAX_PASSES
+    assert out == b"".join(outs)
+    rec = {"leaves": len(rows), "read_s": read_s, "chunks": len(frames),
+           "frames_without_size": sum(s is None for s in sizes), "compressed_bytes": len(joined),
+           "raw_frame_bytes": sum(len(zstd.compress_raw(o)) for o in outs), "decoded_bytes": decoded,
+           "call_per_chunk_s": call_s, "mb_per_s_a_call_a_chunk": decoded / call_s / 1e6,
+           "mb_per_s_one_call": decoded / joined_s / 1e6, "num_imgs": num_imgs}
+    log("orbax", f"(a) the JAX package's directory ({rec['chunks']} zstd chunks, {rec['compressed_bytes']} -> "
+        f"{decoded} bytes; as the port's raw frames {rec['raw_frame_bytes']}) read in {read_s:.3f} s: {len(rows)} "
+        f"leaves equal to their digests; the decoder over {ORBAX_PASSES} passes: {rec['mb_per_s_a_call_a_chunk']:.1f} "
+        f"MB/s of output a call a chunk, {rec['mb_per_s_one_call']:.1f} MB/s with the chunks back to back in one call")
+    return rec
+
+
+def orbax_train_gan(dev, tmp):
+    """(b): train_gan at bf16 B=128 writing the orbax directory and the default file after
+    iterations 1-2; both read into TrainStates bit-equal; --resume from each over 3-6 with
+    equal rows and final states under deterministic algorithms."""
+    from dusty_gan_v2_tpu_torch.cli import train_gan
+    from dusty_gan_v2_tpu_torch.training.checkpoint import (
+        ORBAX_WRITES, checkpoint_format, load_checkpoint, state_payload,
+    )
+    from dusty_gan_v2_tpu_torch.utils.config import save_config
+
+    first, last = ORBAX_RESUME
+    cfg = interop_cfg("dusty_v2_bf16", tmp)
+    B = int(cfg.training.batch_size)
+    for total, name in ((first, "gan_first.yaml"), (last, "gan_resume.yaml")):
+        cfg.training.checkpoint.save_model = total
+        cfg.training.total_kimg = total * B / 1e3
+        save_config(cfg, str(tmp / name))
+    rec, paths = {}, {}
+    for backend in ("orbax", "torch"):
+        argv = ["--config", str(tmp / "gan_first.yaml"), "--log_dir", str(tmp / f"first_{backend}"), "--num_workers",
+                "4", "--device", str(dev), "--ckpt_backend", backend]
+        n_writes = len(ORBAX_WRITES)
+        t0 = time.perf_counter()
+        with deterministic():
+            train_gan.main(argv)
+            torch.cuda.synchronize()
+        rec[f"first_{backend}_s"] = time.perf_counter() - t0
+        paths[backend] = tmp / f"first_{backend}" / "models" / f"checkpoint_{first * B:010d}.ckpt"
+        assert checkpoint_format(str(paths[backend])) == backend, paths[backend]
+        if backend == "orbax":
+            assert len(ORBAX_WRITES) == n_writes + 1, ORBAX_WRITES
+            rec["save"] = dict(ORBAX_WRITES[-1])
+    rec["dir_mib"] = rec["save"]["bytes"] / 2**20
+    rec["file_mib"] = paths["torch"].stat().st_size / 2**20
+    tr = Trainer(cfg.to_dict(), device=dev, seed=0)
+    states = {}
+    for backend, path in paths.items():
+        t0 = time.perf_counter()
+        load_checkpoint(str(path))
+        rec[f"{backend}_read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        states[backend] = state_payload(load_checkpoint(str(path), tr.init_state(seed=1))[1])
+        rec[f"{backend}_template_read_s"] = time.perf_counter() - t0
+    bad = payload_equal(states["orbax"], states["torch"])
+    assert not bad, bad[:5]
+    del tr, states
+    torch.cuda.empty_cache()
+    want = {k: (last - first) * v for k, v in STEP_LAUNCHES[False].items()}
+    runs = {}
+    for backend, path in paths.items():
+        argv = ["--config", str(tmp / "gan_resume.yaml"), "--log_dir", str(tmp / f"resume_{backend}"),
+                "--num_workers", "4", "--resume", str(path), "--device", str(dev)]
+        read_and_reset(CHAIN_COUNTERS)
+        t0 = time.perf_counter()
+        with deterministic():
+            train_gan.main(argv)
+            torch.cuda.synchronize()
+        launches = read_and_reset(CHAIN_COUNTERS)
+        rows = stats_rows(tmp / f"resume_{backend}" / "stats.jsonl")
+        final = torch.load(tmp / f"resume_{backend}" / "models" / f"checkpoint_{last * B:010d}.ckpt",
+                           map_location="cpu", weights_only=True)["state"]
+        runs[backend] = {"s": time.perf_counter() - t0, "launches": launches, "rows": rows, "final": final}
+        assert launches == want, (backend, launches, want)
+        assert [r["iteration"] for r in rows] == list(range(first + 1, last + 1)), rows
+    rec["stats_diff"] = rows_diff(runs["orbax"]["rows"], runs["torch"]["rows"])
+    final_bad = payload_equal(runs["orbax"].pop("final"), runs["torch"].pop("final"))
+    rec["runs"] = runs
+    log("orbax", f"(b) bf16 B={B} train state after iterations 1-{first}: directory {rec['dir_mib']:.1f} MiB against "
+        f"the file's {rec['file_mib']:.1f} MiB; the loop spent {rec['save']['snapshot_s']:.3f} s in the save, the "
+        f"background write {rec['save']['write_s']:.3f} s; read in {rec['orbax_read_s']:.3f} s "
+        f"({rec['orbax_template_read_s']:.3f} s into a TrainState; the file {rec['torch_read_s']:.3f} / "
+        f"{rec['torch_template_read_s']:.3f} s); both TrainStates bit-equal")
+    log("orbax", f"(b) train_gan --resume over iterations {first + 1}-{last} under deterministic algorithms: from "
+        f"the directory {runs['orbax']['s']:.2f} s, from the file {runs['torch']['s']:.2f} s; launches "
+        f"{runs['orbax']['launches']} (want {want}); stats differ by {rec['stats_diff']}; final states differ in "
+        f"{final_bad[:5]}")
+    assert all(v == 0.0 for v in rec["stats_diff"].values()) and not final_bad, (rec["stats_diff"], final_bad[:5])
+    return rec, paths
+
+
+def orbax_autoload(dev, paths):
+    """(c): autoload_ckpt of the directory and of the file; B=8 samples of G_ema on one z
+    and one logistic noise, equal to the bit, K1 9 each."""
+    from dusty_gan_v2_tpu_torch.pretrained import autoload_ckpt
+
+    rec, outs = {}, {}
+    for backend, path in paths.items():
+        t0 = time.perf_counter()
+        ck = autoload_ckpt(str(path), dev)
+        rec[f"{backend}_autoload_s"] = time.perf_counter() - t0
+        G, angle = ck["G_ema"], ck["angle"]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        z = torch.randn(B_SLICE, G.style_dim, generator=gen, device=dev)
+        noise = sample_logistic(gen, (B_SLICE, 1, *angle.shape[-2:]), dev)
+        read_and_reset(CHAIN_COUNTERS)
+        outs[backend] = sample(G, z, angle, 0.7, noise)
+        torch.cuda.synchronize()
+        rec[f"{backend}_launches"] = read_and_reset(CHAIN_COUNTERS)["fused_bias_act"]
+        del ck, G, angle
+    bad = [k for k in outs["orbax"] if not torch.equal(outs["orbax"][k], outs["torch"][k])]
+    log("orbax", f"(c) autoload_ckpt: the directory in {rec['orbax_autoload_s']:.3f} s, the file in "
+        f"{rec['torch_autoload_s']:.3f} s; B={B_SLICE} samples differ in {bad}; K1 {rec['orbax_launches']} / "
+        f"{rec['torch_launches']}")
+    assert not bad and rec["orbax_launches"] == rec["torch_launches"] == G_K1, (bad, rec)
+    return rec
+
+
+def phase_orbax(dev, smi):
+    """Phase 17: (a) the JAX package's orbax directory decoded on the card's host; (b) train_gan
+    writing and resuming a directory at bf16 B=128; (c) autoload_ckpt of a directory."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = {"nvidia_smi": smi, "fixture": orbax_fixture()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as tmp:
+        tmp = Path(tmp)
+        fabricate_kitti(tmp / "kitti_raw")
+        rec["train_gan"], paths = orbax_train_gan(dev, tmp)
+        rec["autoload"] = orbax_autoload(dev, paths)
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    log("orbax", f"phase 17: {rec['s']:.1f} s ({smi})")
+    return rec
+
+
 def check_kernels_line(ks):
     for k in ks:
         assert all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")) and k["launches"] > 0, k
 
 
+PHASE_S = {}  # seconds each phase took, in the order run
+
+
 def run_phase(name, fn, *args):
     """fn(*args); a failure prints "chip_smoke: FAILED in <name>: <error>" on stdout and
     propagates (its traceback on stderr, the exit code non-zero)."""
+    t0 = time.perf_counter()
     try:
-        return fn(*args)
+        out = fn(*args)
+        PHASE_S[name] = time.perf_counter() - t0
+        return out
     except Exception as e:
         print(f"chip_smoke: FAILED in {name}: {type(e).__name__}: {' '.join(str(e).split())[:4000]}", flush=True)
         raise
@@ -4016,6 +4226,7 @@ def main():
     interop_rec = run_phase("15 interop", phase_interop, dev, smi)
     options_rec = run_phase("16 options", phase_options, dev, smi,
                             other_rec["dusty_v1"]["bare"]["rates"]["imgs_per_s"])
+    orbax_rec = run_phase("17 orbax", phase_orbax, dev, smi)
     # this slice's main path is demo_inversion at its defaults: K1 at each of its 1,001 G
     # forwards; K4 and K5 over train_gan's 16 iterations (8, a checkpoint, 8 resumed), K2 and
     # K3 in test_gan (phase 10), the paths that run them
@@ -4031,8 +4242,9 @@ def main():
         "evaluate": eval_rec, "rates": rates, "fused_chain": chain_rows, "critic": critic_rec,
         "critic_rates": critic_rates, "train": train_rec, "cli": cli_rec, "semseg": semseg_rec,
         "other_archs": other_rec, "inversion": inversion_rec, "parallel": parallel_rec, "interop": interop_rec,
-        "options": options_rec,
+        "options": options_rec, "orbax": orbax_rec, "phase_s": PHASE_S,
     }
+    log("time", "seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()))
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=1, default=str))
     run_phase("kernels line", check_kernels_line, ks)

@@ -1,7 +1,8 @@
 """Train a LiDAR range-image GAN on KITTI Raw (counterpart of train_gan.py).
 
     python -m dusty_gan_v2_tpu_torch.cli.train_gan --config configs/gans/dusty_v2_bf16.yaml \
-        [--resume <checkpoint>] [--log_dir DIR] [--dry_run] [--device cuda|cpu] \
+        [--resume <checkpoint file or directory>] [--log_dir DIR] [--dry_run] [--device cuda|cpu] \
+        [--ckpt_backend torch|orbax] \
         [--distributed [--coordinator HOST:PORT --num_processes N --process_id I]]
 
 Data parallel: one process per card, each started with --distributed and either the
@@ -24,15 +25,18 @@ transfer, FPD/KPD validation every `validation` iterations when a PointNet is gi
 side samples every `save_image` iterations (written to <log_dir>/images/step_<imgs>.npz: the
 raw arrays and the JAX CLI's image panels under its TensorBoard tags, `image_panels`; the
 real frames' panels once at the start, in step_0000000001.npz),
-and a checkpoint every `save_model` iterations and at the last. Scalars keep the JAX
-CLI's names; they go to stdout and to <log_dir>/stats.jsonl.
+and a checkpoint every `save_model` iterations and at the last: by default the port's own
+file (training/checkpoint.py::save_checkpoint), with --ckpt_backend orbax the JAX CLI's
+orbax directory (models/checkpoint_<num_imgs>.ckpt/ with state/ and meta.msgpack, written by
+a background thread that the run joins before it exits). --resume takes either, and the
+JAX CLI's msgpack file. Scalars
+keep the JAX CLI's names; they go to stdout and to <log_dir>/stats.jsonl.
 
 Every draw is keyed by (seed, iteration): the step's by fold_seed(seed, iteration),
 the side samples' by fold_seed(seed, SIDE, 2i + 1) and (seed, SIDE, 2i), and a resumed
 run skips the sampler's indices of the iterations done, so that it trains on what the
 uninterrupted run would have. imgs/s counts the global batch over the iterations of this
-run only. Not ported: the TensorBoard writer (the card's machine has no tensorboard) and
-orbax checkpoint directories (the JAX CLI's `--ckpt_backend orbax`: tensorstore's formats).
+run only. Not ported: the TensorBoard writer (the card's machine has no tensorboard).
 """
 
 from __future__ import annotations
@@ -55,7 +59,9 @@ from ..geometry import CoordBridge, render_point_clouds
 from ..metrics import build_pointnet, compute_frechet_distance, compute_squared_mmd
 from ..parallel import PerSampleStream, fold_seed, init_distributed, rank, shutdown, world_size
 from ..training import Trainer, fetch_reals
-from ..training.checkpoint import load_checkpoint, save_checkpoint
+from ..training.checkpoint import (
+    load_checkpoint, save_checkpoint, save_checkpoint_orbax, wait_for_checkpoints,
+)
 from ..utils import colorize, init_random_seed, points_to_normal_2d, power_spectrum_2d, resolve_device, tanh_to_sigmoid
 from ..utils.config import load_config, save_config
 
@@ -131,7 +137,7 @@ def image_panels(tag: str, coord: Optional[CoordBridge] = None, image=None, imag
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
-    parser.add_argument("--resume", default=None)
+    parser.add_argument("--resume", default=None, help="a checkpoint file or an orbax checkpoint directory")
     parser.add_argument("--log_dir", default=None)
     parser.add_argument("--dry_run", action="store_true")
     parser.add_argument("--num_workers", type=int, default=4)
@@ -139,6 +145,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="cls_model_39.pth for FPD/KPD validation, or 'random' (seeded weights: timing only)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace of steps 20-25 of this run into DIR")
+    parser.add_argument("--ckpt_backend", default="torch", choices=("torch", "orbax"),
+                        help="torch: the port's file (default); orbax: the JAX CLI's orbax directory, written in "
+                             "the background")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--distributed", action="store_true",
                         help="data parallel: join a process group (the three flags below, or torchrun's environment)")
@@ -302,8 +311,12 @@ def _train(args: argparse.Namespace, cfg, device: torch.device):
 
             if i % int(ckpt_cfg.save_model) == 0 or i == total_iters:
                 path = log_dir / "models" / f"checkpoint_{num_imgs:010d}.ckpt"
-                save_checkpoint(str(path), cfg, state, trainer.angle, num_imgs)  # the chief writes; all wait
+                # the chief writes; every rank waits (for a directory: in wait_for_checkpoints)
+                save = save_checkpoint_orbax if args.ckpt_backend == "orbax" else save_checkpoint
+                save(str(path), cfg, state, trainer.angle, num_imgs)
     finally:
+        if args.ckpt_backend == "orbax":
+            wait_for_checkpoints()  # the background writes end (or raise) before the run does
         if stats_file is not None:
             stats_file.close()
         loader.close()  # stops the loader's thread

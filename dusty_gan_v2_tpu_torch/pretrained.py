@@ -4,10 +4,9 @@ local-checkpoint routes).
     ckpt = autoload_ckpt("logs/gans/.../models/checkpoint_0000002048.ckpt")  # CUDA by default
     o = ckpt["G_ema"](z, ckpt["angle"], gumbel_noise=noise)
 
-It reads three kinds of file: the port's own checkpoints and the JAX CLI's msgpack
-checkpoints (training/checkpoint.py tells them apart by their first bytes), and the
-reference implementation's `.pth` checkpoints (convert/torch_weights.py; a file named
-*.pth). The release keywords (a download of the published `.pth` files) are not
+It reads the port's own checkpoints, the JAX CLI's msgpack checkpoints and its orbax
+checkpoint directories (training/checkpoint.py tells them apart), and the reference
+implementation's `.pth` checkpoints (convert/torch_weights.py; a file named *.pth). The release keywords (a download of the published `.pth` files) are not
 supported: a checkpoint is a local file.
 """
 
@@ -30,7 +29,7 @@ def autoload_ckpt(path: str, device="cuda") -> Dict[str, Any]:
     holds), "state" (the file's state dict, on the CPU; the converted state_dicts for a
     reference file)}."""
     device = resolve_device(device)
-    if not os.path.isfile(path):
+    if not os.path.exists(path):
         raise ValueError(f"no checkpoint at {path!r} (the release keywords are not supported)")
     if path.endswith(".pth"):
         state = load_reference_checkpoint(path)

@@ -299,9 +299,9 @@ def test_tanh_to_sigmoid():
 # --------------------------------------------------------------------------- package rules
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax, flax, optax, orbax or the JAX
-    package."""
-    banned = ("jax", "flax", "optax", "orbax", "dusty_gan_v2_tpu")
+    """No module of the port, nor chip_smoke.py, imports jax, flax, optax, orbax, tensorstore,
+    zstandard or the JAX package."""
+    banned = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard", "dusty_gan_v2_tpu")
     offenders = []
     for path in [*PORT_DIR.rglob("*.py"), PORT_DIR.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -5,7 +5,9 @@ Two worker processes run this file itself with --worker (tests/test_torch_parall
 starts them) and drive, in one interpreter each:
 - train_gan --distributed at world 2 on the fabricated KITTI Raw tree and tiny config of
   tests/test_torch_gan_e2e.py (4 iterations at a global batch of 8: warmup, ADA, lazy R1
-  and PL, checkpoints at 2 and 4), then a world-2 --resume from the checkpoint at 2;
+  and PL, checkpoints at 2 and 4), then a world-2 --resume from the checkpoint at 2; the
+  same run with --ckpt_backend orbax (directories, written by the chief's background
+  thread), then a world-2 --resume from its directory at 2;
 - train_semseg --distributed at world 2 on tests/test_torch_semseg_e2e.py's fabricated
   frontal tree (KITTI frontal frames without flips: the GTA datasets draw their ray drop
   from numpy's global generator in the loader's threads, so no two runs of them load the
@@ -13,7 +15,8 @@ starts them) and drive, in one interpreter each:
 The test process runs the same at world 1. Each rank gets a log directory of its own;
 the chief's must hold what world 1 writes (stats within JAX's invariance bars, the final
 state within its parameter bars) and every other rank's must not exist. The resumed
-world-2 run ends on the uninterrupted world-2 run's state bit for bit.
+world-2 runs end on the uninterrupted world-2 run's state bit for bit, and so does the
+orbax run's directory.
 """
 
 import json
@@ -26,6 +29,8 @@ import torch
 import yaml
 
 from dusty_gan_v2_tpu_torch.cli import train_gan, train_semseg
+from dusty_gan_v2_tpu_torch.training import Trainer
+from dusty_gan_v2_tpu_torch.training.checkpoint import load_checkpoint, state_payload
 
 GAN_B = 8
 
@@ -44,6 +49,11 @@ def _worker(rank, world, port, tmp):
     mid = tmp / "g2" / "models" / f"checkpoint_{2 * GAN_B:010d}.ckpt"
     train_gan.main(["--config", a["gan_cfg"], "--log_dir", str(tmp / f"g2r{sfx}"), "--resume", str(mid)]
                    + _common(rank, world, a["port2"]))
+    train_gan.main(["--config", a["gan_cfg"], "--log_dir", str(tmp / f"g2o{sfx}"), "--ckpt_backend", "orbax"]
+                   + _common(rank, world, a["port4"]))
+    mid = tmp / "g2o" / "models" / f"checkpoint_{2 * GAN_B:010d}.ckpt"
+    train_gan.main(["--config", a["gan_cfg"], "--log_dir", str(tmp / f"g2or{sfx}"), "--resume", str(mid)]
+                   + _common(rank, world, a["port5"]))
     train_semseg.main(["--config", a["sem_cfg"], "--log_dir", str(tmp / f"s2{sfx}")] + _common(rank, world, a["port3"]))
 
 
@@ -76,7 +86,8 @@ def runs(kitti_root, tree, tmp_path_factory):
     cfg["dataset"].update(name="kitti_raw_frontal", random_flip=False)
     sem.write_text(yaml.safe_dump(cfg))
     (tmp / "args.json").write_text(json.dumps({"gan_cfg": str(tmp / "gan.yaml"), "sem_cfg": str(sem),
-                                               "port2": free_port(), "port3": free_port()}))
+                                               "port2": free_port(), "port3": free_port(), "port4": free_port(),
+                                               "port5": free_port()}))
     spawn([tmp], script=__file__)
     common = ["--device", "cpu", "--num_workers", "2"]
     train_gan.main(["--config", str(tmp / "gan.yaml"), "--log_dir", str(tmp / "g1")] + common)
@@ -122,7 +133,7 @@ def test_train_gan_world_two_writes_what_world_one_writes(runs):
 
 
 def test_only_the_chief_writes(runs):
-    for d in ("g2", "g2r", "s2"):
+    for d in ("g2", "g2r", "g2o", "g2or", "s2"):
         assert (runs / d).is_dir()
         assert not (runs / f"{d}_rank1").exists(), d
 
@@ -132,6 +143,22 @@ def test_train_gan_world_two_resume_is_bit_exact(runs):
     a, b = _payload(runs / "g2r" / "models" / name), _payload(runs / "g2" / "models" / name)
     _assert_equal_trees(a["state"], b["state"])
     assert [r["iteration"] for r in _rows(runs / "g2r" / "stats.jsonl")] == [3, 4]
+
+
+def test_train_gan_world_two_orbax_directories(runs):
+    """--ckpt_backend orbax at world 2: the chief's directories hold the default run's states
+    bit for bit (Adam's moments included), and a world-2 --resume from the directory at 2,
+    which every rank reads, ends on the same state."""
+    models = runs / "g2o" / "models"
+    names = [f"checkpoint_{n * GAN_B:010d}.ckpt" for n in (2, 4)]
+    assert sorted(p.name for p in models.iterdir()) == names and all((models / n).is_dir() for n in names)
+    for n in names:
+        cfg, _, angle, num_imgs = load_checkpoint(str(models / n))
+        st = load_checkpoint(str(models / n), Trainer(cfg.to_dict(), device="cpu", angle=angle).init_state(seed=9))[1]
+        _assert_equal_trees(state_payload(st), _payload(runs / "g2" / "models" / n)["state"], n)
+    _assert_equal_trees(_payload(runs / "g2or" / "models" / names[1])["state"],
+                        _payload(runs / "g2" / "models" / names[1])["state"])
+    assert [r["iteration"] for r in _rows(runs / "g2or" / "stats.jsonl")] == [3, 4]
 
 
 def test_train_semseg_world_two_writes_what_world_one_writes(runs):
