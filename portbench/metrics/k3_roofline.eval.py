@@ -1,0 +1,7 @@
+"""K3's share of its roofline over the evaluation window's launches (harness/readers.py)."""
+
+from portbench.harness.readers import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "k3")
